@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / H100 port (webgraph_tpu_torch) on one GPU.
+
+Drives the port's main path, bulk BVGraph decode into CSR, on the card:
+
+1. device: the card's name and power limit, torch and CUDA versions;
+2. build: compiles the CUDA kernels from ``webgraph_tpu_torch/csrc``;
+3. K0: the code-reader probe kernel against the plain PyTorch readers and
+   the values written by the scalar encoder, exactly;
+4. K1 small: the decode kernel against the plain PyTorch decoder (slab rows
+   and emission counts) and against ``bvgraph_np.decode_to_csr`` (CSR),
+   exactly, on the graph set of tests/test_pallas_decode2.py;
+5. main path at size: a seeded web-like graph of cnr-2000's size stored with
+   cnr-2000's parameters, decoded through
+   ``webgraph_tpu_torch.decode_to_csr(g, device="cuda")`` with the launch
+   counters reset just before, checked against the oracle, then timed
+   (kernel and plain decoder); repeated on cnr-2000 itself where the
+   fixture that ``bench.py`` reads exists.
+
+It prints a JSON line of per-kernel results and, last, a JSON line with the
+device.  Any failure raises, so the exit code is not 0 and no last line is
+printed.  Without a CUDA device it fails at once.
+
+    python3 chip_smoke.py
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+SEED = 0
+# the cnr-2000 fixture bench.py reads, where a machine has it
+CNR2000 = "/root/reference/slow/it/unimi/dsi/webgraph/cnr-2000"
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"device: {card} | torch {torch.__version__} | cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    return card
+
+
+def phase_build():
+    from webgraph_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({os.path.basename(_build.library_path())})")
+
+
+def _code_stream(write):
+    """Encode with the scalar writer; return (words, positions) on the card
+    and the lengths."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu.bits.bitstream import OutputBitStream, bytes_to_words
+
+    obs = OutputBitStream()
+    pos = []
+    for item in write:
+        pos.append(obs.written_bits)
+        item(obs)
+    ends = np.diff(np.asarray(pos + [obs.written_bits], dtype=np.int64))
+    w = np.concatenate([bytes_to_words(obs.to_bytes()),
+                        np.zeros(2, np.uint64)])
+    words = torch.from_numpy(w.view(np.int64)).cuda()
+    return words, torch.tensor(pos, dtype=torch.int64).cuda(), ends
+
+
+def phase_k0():
+    import numpy as np
+    import torch
+
+    from webgraph_tpu.bits import codes as C
+    from webgraph_tpu_torch.kernels import pcodes as P
+
+    rng = np.random.default_rng(42)
+    vals = np.concatenate([
+        np.arange(64), rng.integers(0, 1 << 16, 200),
+        rng.integers(0, 1 << 28, 100),
+        np.array([2**31 - 1, 2**31], dtype=np.uint64)]).astype(np.uint64)
+    cases = [("gamma", C.GAMMA, 0), ("delta", C.DELTA, 0)] + [
+        (f"zeta{k}", C.ZETA, k) for k in range(1, 8)]
+    err = 0
+    for name, coding, k in cases:
+        words, pos, lens = _code_stream(
+            [lambda o, v=int(v): o.write(coding, v, k) for v in vals])
+        got, ln = P.probe(words, pos, coding, k)
+        pv, pl = P.probe_plain(words, pos, coding, k)
+        check(np.array_equal(got.cpu().numpy(), vals.astype(np.int64)),
+              f"K0 {name}: values differ from the written ones")
+        check(np.array_equal(ln.cpu().numpy(), lens),
+              f"K0 {name}: lengths differ from the written ones")
+        check(torch.equal(got, pv) and torch.equal(ln.long(), pl),
+              f"K0 {name}: kernel differs from the plain readers")
+        err = max(err, int((got - pv).abs().max()))
+    uv = rng.integers(0, 60, 100)
+    words, pos, lens = _code_stream(
+        [lambda o, v=int(v): o.write_unary(v) for v in uv])
+    got, ln = P.probe(words, pos, C.UNARY)
+    check(np.array_equal(got.cpu().numpy(), uv)
+          and np.array_equal(ln.cpu().numpy(), lens), "K0 unary differs")
+    bs = rng.integers(1, 1 << 20, 100)
+    vs = (rng.random(100) * bs).astype(np.int64)
+    words, pos, lens = _code_stream(
+        [lambda o, v=int(v), b=int(b): o.write_minimal_binary(v, b)
+         for v, b in zip(vs, bs)])
+    bt = torch.from_numpy(bs.astype(np.int64)).cuda()
+    got, ln = P.probe(words, pos, P.MINIMAL_BINARY, b=bt)
+    pv, pl = P.probe_plain(words, pos, P.MINIMAL_BINARY, b=bt)
+    check(np.array_equal(got.cpu().numpy(), vs)
+          and np.array_equal(ln.cpu().numpy(), lens)
+          and torch.equal(got, pv), "K0 minimal binary differs")
+
+    # timing: 2**20 ζ_3 codes (the residual coding of the main path)
+    big = rng.integers(0, 1 << 12, 1 << 20)
+    words, pos, _ = _code_stream(
+        [lambda o, v=int(v): o.write_zeta(v, 3) for v in big])
+    ms = cuda_ms(lambda: P.probe(words, pos, C.ZETA, 3), 20)
+    plain_ms = cuda_ms(lambda: P.probe_plain(words, pos, C.ZETA, 3), 5)
+    got, _ = P.probe(words, pos, C.ZETA, 3)
+    check(np.array_equal(got.cpu().numpy(), big), "K0 timing set differs")
+    print(f"K0: {len(cases) + 2} codings exact vs plain readers and oracle; "
+          f"2^20 zeta_3 codes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _store(g, tmp, name, **kw):
+    from webgraph_tpu.formats.bvgraph import BVGraph
+
+    base = os.path.join(tmp, name)
+    BVGraph.store(g, base, **kw)
+    return BVGraph.load(base)
+
+
+def _slab_err(slab, wp, pslab, pwp):
+    """Max |kernel - plain| over the written slots; the counts must agree."""
+    import torch
+
+    check(torch.equal(wp, pwp), "K1 emission counts differ from plain")
+    cols = torch.arange(slab.shape[1], device=slab.device)
+    live = cols[None, :] < wp[:, None].long()
+    err = int(torch.where(live, (slab.long() - pslab.long()).abs(), 0).max())
+    check(err == 0, f"K1 slab differs from plain (max |err| {err})")
+    return err
+
+
+def _kernel_vs_plain(prep):
+    """K1 against its plain version on every tile of a prepared graph."""
+    from webgraph_tpu_torch.kernels import decode2 as D2
+
+    for li in prep.inputs:
+        slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
+        pslab, pwp, perr = D2.decode_lanes_plain(prep.words, prep.bo, li,
+                                                 prep.skey)
+        D2.check_errors(perr)
+        _slab_err(slab, wp, pslab, pwp)
+
+
+def _csr_vs_oracle(bv, off, succ, what):
+    import numpy as np
+
+    from webgraph_tpu.formats import bvgraph_np
+
+    toff, tsucc = bvgraph_np.decode_to_csr(bv)
+    check(np.array_equal(off.cpu().numpy(), toff), f"{what}: offsets differ")
+    check(np.array_equal(succ.cpu().numpy(), tsucc),
+          f"{what}: successors differ")
+
+
+def phase_k1_small(tmp):
+    from webgraph_tpu.bits import codes as C
+    from webgraph_tpu.formats.bvgraph import BVGraphSettings
+    from webgraph_tpu.graph.builders import MutableGraph
+    from webgraph_tpu.graph.csr import CSRGraph
+    from webgraph_tpu_torch.formats import bvgraph as F
+
+    lists = []
+    for x in range(120):
+        if x % 17 == 0:
+            lists.append([])
+        elif x % 3 == 0:
+            lists.append(list(range(x, x + 40)))
+        elif x % 3 == 1:
+            lists.append(list(range(x, x + 40)) + [200 + x, 400 + x])
+        else:
+            lists.append([1, 5, 9, 200 + 2 * x])
+    delta = BVGraphSettings(window_size=4, max_ref_count=2,
+                            min_interval_length=2)
+    delta.codings["OUTDEGREES"] = C.DELTA
+    delta.codings["BLOCKS"] = C.DELTA
+    delta.codings["RESIDUALS"] = C.GAMMA
+    er = MutableGraph.erdos_renyi
+    graphs = [
+        ("default", er(300, 0.03, seed=0),
+         dict(window_size=7, max_ref_count=3, min_interval_length=4), None),
+        *[(f"w{w}r{r}i{i}", er(n, p, seed=s),
+           dict(window_size=w, max_ref_count=r, min_interval_length=i), None)
+          for w, r, i, s, n, p in [(7, 3, 3, 1, 200, 0.08),
+                                   (0, 0, 4, 2, 150, 0.05),
+                                   (1, 1, 0, 3, 150, 0.05),
+                                   (2, 2, 2, 4, 250, 0.04),
+                                   (7, 7, 2, 5, 400, 0.02)]],
+        ("structures", CSRGraph.from_lists(lists),
+         dict(window_size=7, max_ref_count=3, min_interval_length=4), None),
+        ("delta", er(200, 0.05, seed=9), dict(settings=delta), None),
+        ("tiled", er(3000, m=30000, seed=11), {}, 5000),
+    ]
+    for name, g, kw, tile_arcs in graphs:
+        bv = _store(g, tmp, name, **kw)
+        prep = F.prepare(bv, "cuda", tile_arcs=tile_arcs)
+        _kernel_vs_plain(prep)
+        off, succ = F.decode_prepared(prep)
+        _csr_vs_oracle(bv, off, succ, f"K1 {name}")
+    print(f"K1 small: {len(graphs)} graphs exact vs plain decoder and oracle")
+
+
+def phase_main(bv, label, card):
+    import numpy as np
+    import torch
+
+    import webgraph_tpu_torch as wgt
+    from webgraph_tpu.pallas.plan import scan_structure
+    from webgraph_tpu_torch.formats import bvgraph as F
+    from webgraph_tpu_torch.kernels import decode2 as D2
+    from webgraph_tpu_torch.kernels import pcodes as P
+
+    n, m = bv.num_nodes(), bv.num_arcs()
+    scan = scan_structure(bv)
+    copied = float(scan.copied.astype(np.int64).sum()) / m
+    res = int(scan.res_count.astype(np.int64).sum())
+    iarcs = m - int(scan.copied.astype(np.int64)[scan.ref > 0].sum()) - res
+    t0 = time.perf_counter()
+    prep = F.prepare(bv, "cuda")
+    plan_s = time.perf_counter() - t0
+    max_steps = max(p.max_steps for p in prep.tiles)
+    print(f"{label}: n {n} m {m} copied {copied:.4f} interval "
+          f"{iarcs / m:.4f} max_steps {max_steps} tiles {len(prep.tiles)} "
+          f"slabw {prep.tiles[0].slabw} plan {plan_s:.2f} s")
+    check(copied >= 0.2, f"{label}: copied share {copied:.3f} under 0.2")
+    check(iarcs > 0, f"{label}: no interval arcs")
+
+    # the main path, through the public entry point, counted
+    D2.decode_lanes.launches = 0
+    P.probe.launches = 0
+    off, succ = wgt.decode_to_csr(bv, device="cuda")
+    torch.cuda.synchronize()
+    launches = D2.decode_lanes.launches
+    check(launches > 0, f"{label}: K1 was not launched")
+    _csr_vs_oracle(bv, off, succ, label)
+
+    # timing, planning excluded: warm-up, then median of 5
+    F.decode_prepared(prep)
+    decode_ms = cuda_ms(lambda: F.decode_prepared(prep), 5)
+    li = prep.inputs[0]
+    kernel_ms = cuda_ms(
+        lambda: D2.decode_lanes(prep.words, prep.bo, li, prep.skey), 5)
+    slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    pslab, pwp, perr = D2.decode_lanes_plain(prep.words, prep.bo, li,
+                                             prep.skey)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    D2.check_errors(perr)
+    err = _slab_err(slab, wp, pslab, pwp)
+    print(f"{label}: decode {decode_ms:.4f} ms = {m / decode_ms / 1e3:.2f} "
+          f"Medges/s; K1 kernel (tile 0) {kernel_ms:.4f} ms; plain decoder "
+          f"(tile 0) {plain_ms:.1f} ms = {m / plain_ms / 1e3:.3f} Medges/s; "
+          f"card {card}")
+    return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "decode_ms": decode_ms}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import webgraph_tpu_torch  # noqa: F401  (fails outside the repo)
+    from webgraph_tpu.formats.bvgraph import BVGraph
+    from webgraph_tpu_torch.synth import weblike_graph
+
+    card = phase_device()
+    phase_build()
+    k0 = phase_k0()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_k1_small(tmp)
+        t0 = time.perf_counter()
+        g = weblike_graph(seed=SEED)
+        bv = _store(g, tmp, "weblike", window_size=7, max_ref_count=3,
+                    min_interval_length=3, zeta_k=3)
+        print(f"synthetic graph: {time.perf_counter() - t0:.2f} s to make "
+              f"and store")
+        main_run = phase_main(bv, "weblike-cnr2000-size", card)
+    if os.path.exists(CNR2000 + ".graph"):
+        phase_main(BVGraph.load(CNR2000), "cnr-2000", card)
+    else:
+        print(f"cnr-2000: skipped ({CNR2000}.graph not present)")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+    check(not leaked, f"the port imported JAX: {leaked[:5]}")
+
+    kernels = [
+        {"name": "k1_decode2", "route": "cuda",
+         "source": "webgraph_tpu_torch/csrc/decode2.cu",
+         "replaces": "webgraph_tpu/pallas/decode2.py:617",
+         "launches": main_run["launches"],
+         "max_abs_err": main_run["max_abs_err"],
+         "ms": main_run["ms"], "plain_ms": main_run["plain_ms"]},
+        # K0 is device code inlined into K1: it runs in every K1 launch, and
+        # is timed on its own through its probe kernel
+        {"name": "k0_pcodes", "route": "cuda",
+         "source": "webgraph_tpu_torch/csrc/pcodes.cuh",
+         "replaces": "webgraph_tpu/pallas/pcodes.py:107",
+         "launches": main_run["launches"], "inlined_in": "k1_decode2",
+         "max_abs_err": k0["max_abs_err"],
+         "ms": k0["ms"], "plain_ms": k0["plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

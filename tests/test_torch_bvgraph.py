@@ -1,0 +1,154 @@
+"""The port's bulk decode (webgraph_tpu_torch.decode_to_csr) against the host
+oracle bvgraph_np.decode_to_csr, exactly, on the graph set of
+tests/test_pallas_decode2.py: on the CPU through the plain decoder, and on
+the card through the K1 kernel, which must also equal the plain decoder in
+every written slab slot.  No JAX here, so the card tests run without it."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from webgraph_tpu.bits import codes as C
+from webgraph_tpu.formats import bvgraph_np
+from webgraph_tpu.formats.bvgraph import BVGraph, BVGraphSettings
+from webgraph_tpu.graph.builders import MutableGraph
+from webgraph_tpu.graph.csr import CSRGraph
+import webgraph_tpu_torch as wgt
+from webgraph_tpu_torch.formats import bvgraph as F
+from webgraph_tpu_torch.kernels import decode2 as D2
+from webgraph_tpu_torch.synth import weblike_graph
+
+
+def _structures():
+    lists = []
+    for x in range(120):
+        if x % 17 == 0:
+            lists.append([])
+        elif x % 3 == 0:
+            lists.append(list(range(x, x + 40)))           # pure interval
+        elif x % 3 == 1:
+            lists.append(list(range(x, x + 40)) + [200 + x, 400 + x])
+        else:
+            lists.append([1, 5, 9, 200 + 2 * x])           # residual-ish
+    return CSRGraph.from_lists(lists)
+
+
+def _delta():
+    s = BVGraphSettings(window_size=4, max_ref_count=2, min_interval_length=2)
+    s.codings["OUTDEGREES"] = C.DELTA
+    s.codings["BLOCKS"] = C.DELTA
+    s.codings["RESIDUALS"] = C.GAMMA
+    return s
+
+
+def _er(n, p=0.0, m=None, seed=0):
+    return lambda: MutableGraph.erdos_renyi(n, p, m=m, seed=seed)
+
+
+# name -> (graph factory, store keywords, tile_arcs)
+GRAPHS = {
+    "default": (_er(300, 0.03, seed=0),
+                dict(window_size=7, max_ref_count=3, min_interval_length=4),
+                None),
+    "w7r3i3": (_er(200, 0.08, seed=1),
+               dict(window_size=7, max_ref_count=3, min_interval_length=3),
+               None),
+    "no_refs": (_er(150, 0.05, seed=2),
+                dict(window_size=0, max_ref_count=0, min_interval_length=4),
+                None),
+    "no_intervals": (_er(150, 0.05, seed=3),
+                     dict(window_size=1, max_ref_count=1,
+                          min_interval_length=0), None),
+    "w2r2i2": (_er(250, 0.04, seed=4),
+               dict(window_size=2, max_ref_count=2, min_interval_length=2),
+               None),
+    "deep_chains": (_er(400, 0.02, seed=5),
+                    dict(window_size=7, max_ref_count=7,
+                         min_interval_length=2), None),
+    "structures": (_structures,
+                   dict(window_size=7, max_ref_count=3,
+                        min_interval_length=4), None),
+    "delta": (_er(200, 0.05, seed=9), dict(settings=_delta()), None),
+    "tiled": (_er(3000, m=30000, seed=11), {}, 5000),
+    "weblike": (lambda: weblike_graph(2000, seed=1, hubs=0),
+                dict(window_size=7, max_ref_count=3, min_interval_length=3,
+                     zeta_k=3), None),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _stored(name, tmp):
+    make, kw, tile_arcs = GRAPHS[name]
+    base = os.path.join(tmp, name)
+    BVGraph.store(make(), base, **kw)
+    return BVGraph.load(base), tile_arcs
+
+
+def _assert_oracle(bv, off, succ):
+    toff, tsucc = bvgraph_np.decode_to_csr(bv)
+    np.testing.assert_array_equal(off.cpu().numpy(), toff)
+    np.testing.assert_array_equal(succ.cpu().numpy(), tsucc)
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_decode_matches_oracle(name, tmp_path):
+    bv, tile_arcs = _stored(name, tmp_path)
+    prep = F.prepare(bv, "cpu", tile_arcs=tile_arcs)
+    if tile_arcs:
+        assert len(prep.tiles) >= 5
+    off, succ = F.decode_prepared(prep)
+    assert off.dtype == torch.int64 and succ.dtype == torch.int32
+    _assert_oracle(bv, off, succ)
+
+
+def test_to_csr_matches_host_backend(tmp_path):
+    bv, _ = _stored("default", tmp_path)
+    off, succ = wgt.to_csr(bv)
+    hoff, hsucc = bv.to_csr(backend="numpy")
+    np.testing.assert_array_equal(off, hoff)
+    np.testing.assert_array_equal(succ, hsucc)
+
+
+def test_weblike_graph_exercises_every_record_part(tmp_path):
+    from webgraph_tpu.pallas.plan import scan_structure
+
+    g = weblike_graph(3000, seed=0, hubs=1)
+    assert g.num_nodes() == 3000
+    assert 8 * 3000 < g.num_arcs() < 14 * 3000
+    base = os.path.join(tmp_path, "w")
+    BVGraph.store(g, base, window_size=7, max_ref_count=3,
+                  min_interval_length=3, zeta_k=3)
+    scan = scan_structure(BVGraph.load(base))
+    m = g.num_arcs()
+    assert scan.copied.sum() / m > 0.2
+    assert scan.int_count.sum() > 0 and scan.res_count.sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_kernel_matches_plain_and_oracle_on_card(name, tmp_path, cuda):
+    bv, tile_arcs = _stored(name, tmp_path)
+    prep = F.prepare(bv, cuda, tile_arcs=tile_arcs)
+    for li in prep.inputs:
+        before = D2.decode_lanes.launches
+        slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
+        assert D2.decode_lanes.launches == before + 1
+        pslab, pwp, perr = D2.decode_lanes_plain(prep.words, prep.bo, li,
+                                                 prep.skey)
+        assert not perr.any()
+        assert torch.equal(wp, pwp)
+        live = torch.arange(li.slabw, device=cuda)[None, :] < wp[:, None]
+        assert torch.equal(torch.where(live, slab, 0),
+                           torch.where(live, pslab, 0))
+    before = D2.decode_lanes.launches
+    off, succ = wgt.decode_to_csr(bv, device=cuda, tile_arcs=tile_arcs)
+    assert D2.decode_lanes.launches == before + len(prep.tiles)
+    _assert_oracle(bv, off, succ)

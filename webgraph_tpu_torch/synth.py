@@ -1,0 +1,85 @@
+"""Seeded synthetic graphs with web-like locality.
+
+A stand-in for a crawled web graph (cnr-2000: 325,557 nodes, 3,216,152
+arcs) where the real file is absent.  Nodes come in runs of consecutive
+"pages of one site" that share a set of base links, so a page's list is
+largely a copy of a nearby page's list; pages also link runs of
+consecutive ids (intervals), local and far single links (gap-coded
+residuals), and a few hub pages carry lists of thousands of arcs.  Stored
+with cnr-2000's parameters (window 7, maxref 3, minint 3, ζ_3) the
+encoder finds copies, intervals and residuals in all three parts of the
+record, as on a real crawl.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from webgraph_tpu.graph.csr import CSRGraph
+
+CNR2000_NODES = 325_557
+CNR2000_ARCS = 3_216_152
+
+
+def _ragged(starts, counts):
+    """Concatenated ranges [starts[i], starts[i] + counts[i])."""
+    total = int(counts.sum())
+    first = np.repeat(np.cumsum(counts) - counts, counts)
+    return np.repeat(starts, counts) + (np.arange(total) - first)
+
+
+def weblike_graph(n: int = CNR2000_NODES, seed: int = 0, *,
+                  hubs: int = 12) -> CSRGraph:
+    """A directed graph of ``n`` nodes and about 9.9 arcs per node."""
+    rng = np.random.default_rng(seed)
+    # sites: runs of 1..40 consecutive pages
+    sizes = rng.integers(1, 41, size=n)
+    sizes = sizes[: int(np.searchsorted(np.cumsum(sizes), n)) + 1]
+    sizes[-1] -= int(sizes.sum()) - n
+    site_start = np.cumsum(sizes) - sizes
+    site_of = np.repeat(np.arange(len(sizes)), sizes)
+
+    # base links of each site: mostly inside the site's neighbourhood
+    nb = rng.integers(3, 13, size=len(sizes))
+    bsite = np.repeat(np.arange(len(sizes)), nb)
+    local = rng.random(len(bsite)) < 0.8
+    base = np.where(
+        local,
+        site_start[bsite] + rng.integers(-20, 60, size=len(bsite)),
+        rng.integers(0, n, size=len(bsite)))
+    bstart = np.cumsum(nb) - nb
+
+    # every page keeps each base link of its site with probability 0.8
+    per = nb[site_of]
+    src = np.repeat(np.arange(n), per)
+    dst = base[_ragged(bstart[site_of], per)]
+    keep = rng.random(len(src)) < 0.8
+    parts = [(src[keep], dst[keep])]
+
+    # runs of consecutive ids near the page
+    has_run = np.flatnonzero(rng.random(n) < 0.4)
+    rlen = rng.integers(3, 13, size=len(has_run))
+    rfirst = has_run + rng.integers(-40, 40, size=len(has_run))
+    parts.append((np.repeat(has_run, rlen), _ragged(rfirst, rlen)))
+
+    # single links: local gaps and far jumps
+    nloc = rng.poisson(0.6, size=n)
+    s = np.repeat(np.arange(n), nloc)
+    parts.append((s, s + rng.integers(-3000, 3000, size=len(s))))
+    nfar = rng.poisson(0.5, size=n)
+    s = np.repeat(np.arange(n), nfar)
+    parts.append((s, rng.integers(0, n, size=len(s))))
+
+    # hub pages with thousands of arcs: long runs and scattered links
+    hub = rng.choice(n, size=hubs, replace=False)
+    hlen = rng.integers(1500, 6000, size=hubs)
+    parts.append((np.repeat(hub, hlen),
+                  _ragged(rng.integers(0, max(n - 6000, 1), size=hubs),
+                          hlen)))
+    hs = np.repeat(hub, hlen // 3)
+    parts.append((hs, rng.integers(0, n, size=len(hs))))
+
+    src = np.concatenate([p[0] for p in parts])
+    dst = np.concatenate([p[1] for p in parts])
+    ok = (dst >= 0) & (dst < n) & (dst != src)
+    return CSRGraph.from_arcs(src[ok], dst[ok], n, dedup=True)
