@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / H100 port (webgraph_tpu_torch) on one GPU.
 
-Drives the port's main path, bulk BVGraph decode into CSR, on the card:
+Drives the port's main path, bulk BVGraph decode into CSR, on the card,
+through its two routes (K1 for reference chains that reach back at most
+256 nodes, K2 for longer ones), using only the port's own modules:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the CUDA kernels from ``webgraph_tpu_torch/csrc``;
@@ -10,12 +12,22 @@ Drives the port's main path, bulk BVGraph decode into CSR, on the card:
 4. K1 small: the decode kernel against the plain PyTorch decoder (slab rows
    and emission counts) and against ``bvgraph_np.decode_to_csr`` (CSR),
    exactly, on the graph set of tests/test_pallas_decode2.py;
-5. main path at size: a seeded web-like graph of cnr-2000's size stored with
-   cnr-2000's parameters, decoded through
+5. K1 at size, ``weblike-cnr2000-size``: a seeded web-like graph of
+   cnr-2000's size stored with cnr-2000's parameters, decoded through
    ``webgraph_tpu_torch.decode_to_csr(g, device="cuda")`` with the launch
-   counters reset just before, checked against the oracle, then timed
-   (kernel and plain decoder); repeated on cnr-2000 itself where the
-   fixture that ``bench.py`` reads exists.
+   counters reset just before and read just after (K1 launched, K2 not),
+   checked against the oracle, then timed (kernel and plain decoder);
+   repeated on cnr-2000 itself where the fixture that ``bench.py`` reads
+   exists;
+6. K2 small: the level kernel against its plain version and the oracle,
+   exactly, on the graph set of tests/test_pallas_decode.py and config 3's
+   deep-chain graph stored with unbounded maxref at minint 0, 4, 8;
+7. K2 at size, ``weblike-cnr2000-size-maxref-inf``: the web-like graph with
+   0.5% of its sites 300-3,000 pages long, stored with unbounded maxref,
+   through the public entry point with the counters reset (K2 launched once
+   a level, K1 not), checked against the oracle, then timed;
+8. K2 stress, ``deep-chain-config3-minint2``: the same on config 3's graph
+   at minint 2, whose chains run 17,819 deep.
 
 It prints a JSON line of per-kernel results and, last, a JSON line with the
 device.  Any failure raises, so the exit code is not 0 and no last line is
@@ -26,13 +38,11 @@ printed.  Without a CUDA device it fails at once.
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
-SEED = 0
 # the cnr-2000 fixture bench.py reads, where a machine has it
 CNR2000 = "/root/reference/slow/it/unimi/dsi/webgraph/cnr-2000"
 
@@ -40,22 +50,6 @@ CNR2000 = "/root/reference/slow/it/unimi/dsi/webgraph/cnr-2000"
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def phase_device():
@@ -76,8 +70,9 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({os.path.basename(_build.library_path())})")
+    libs = ", ".join(os.path.basename(_build.library_path(src))
+                     for src in _build.SOURCES)
+    print(f"build: {time.perf_counter() - t0:.2f} s ({libs})")
 
 
 def _code_stream(write):
@@ -86,7 +81,7 @@ def _code_stream(write):
     import numpy as np
     import torch
 
-    from webgraph_tpu.bits.bitstream import OutputBitStream, bytes_to_words
+    from webgraph_tpu_torch.bits.bitstream import OutputBitStream, bytes_to_words
 
     obs = OutputBitStream()
     pos = []
@@ -104,8 +99,9 @@ def phase_k0():
     import numpy as np
     import torch
 
-    from webgraph_tpu.bits import codes as C
+    from webgraph_tpu_torch.bits import codes as C
     from webgraph_tpu_torch.kernels import pcodes as P
+    from webgraph_tpu_torch.profile_levels import cuda_ms
 
     rng = np.random.default_rng(42)
     vals = np.concatenate([
@@ -153,17 +149,30 @@ def phase_k0():
     plain_ms = cuda_ms(lambda: P.probe_plain(words, pos, C.ZETA, 3), 5)
     got, _ = P.probe(words, pos, C.ZETA, 3)
     check(np.array_equal(got.cpu().numpy(), big), "K0 timing set differs")
+    # bound: the stream and positions read once, values and lengths written
+    nbytes = words.numel() * 8 + pos.numel() * (8 + 8 + 4)
+    bound_ms, bound_by = _bound(nbytes, pos.numel())
     print(f"K0: {len(cases) + 2} codings exact vs plain readers and oracle; "
-          f"2^20 zeta_3 codes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"2^20 zeta_3 codes: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _store(g, tmp, name, **kw):
-    from webgraph_tpu.formats.bvgraph import BVGraph
+    from webgraph_tpu_torch.formats.bvgraph import BVGraph
 
     base = os.path.join(tmp, name)
     BVGraph.store(g, base, **kw)
     return BVGraph.load(base)
+
+
+def _cell(tmp, label):
+    """A cell of ``synth.CELLS``, made and stored, loaded."""
+    from webgraph_tpu_torch.synth import CELLS
+
+    make, kw, _ = CELLS[label]
+    return _store(make(), tmp, label, **kw)
 
 
 def _slab_err(slab, wp, pslab, pwp):
@@ -193,7 +202,7 @@ def _kernel_vs_plain(prep):
 def _csr_vs_oracle(bv, off, succ, what):
     import numpy as np
 
-    from webgraph_tpu.formats import bvgraph_np
+    from webgraph_tpu_torch.formats import bvgraph_np
 
     toff, tsucc = bvgraph_np.decode_to_csr(bv)
     check(np.array_equal(off.cpu().numpy(), toff), f"{what}: offsets differ")
@@ -202,10 +211,10 @@ def _csr_vs_oracle(bv, off, succ, what):
 
 
 def phase_k1_small(tmp):
-    from webgraph_tpu.bits import codes as C
-    from webgraph_tpu.formats.bvgraph import BVGraphSettings
-    from webgraph_tpu.graph.builders import MutableGraph
-    from webgraph_tpu.graph.csr import CSRGraph
+    from webgraph_tpu_torch.bits import codes as C
+    from webgraph_tpu_torch.formats.bvgraph import BVGraphSettings
+    from webgraph_tpu_torch.graph.builders import MutableGraph
+    from webgraph_tpu_torch.graph.csr import CSRGraph
     from webgraph_tpu_torch.formats import bvgraph as F
 
     lists = []
@@ -242,10 +251,57 @@ def phase_k1_small(tmp):
     for name, g, kw, tile_arcs in graphs:
         bv = _store(g, tmp, name, **kw)
         prep = F.prepare(bv, "cuda", tile_arcs=tile_arcs)
+        check(isinstance(prep, F.Prepared), f"K1 {name}: routed past K1")
         _kernel_vs_plain(prep)
         off, succ = F.decode_prepared(prep)
         _csr_vs_oracle(bv, off, succ, f"K1 {name}")
     print(f"K1 small: {len(graphs)} graphs exact vs plain decoder and oracle")
+
+
+def _reset_counts():
+    from webgraph_tpu_torch.kernels import decode as K2
+    from webgraph_tpu_torch.kernels import decode2 as D2
+    from webgraph_tpu_torch.kernels import pcodes as P
+
+    D2.decode_lanes.launches = 0
+    K2.decode_levels.launches = 0
+    P.probe.launches = 0
+
+
+def _counts():
+    """(K1, K2, K0 probe) launches since the last reset."""
+    from webgraph_tpu_torch.kernels import decode as K2
+    from webgraph_tpu_torch.kernels import decode2 as D2
+    from webgraph_tpu_torch.kernels import pcodes as P
+
+    return D2.decode_lanes.launches, K2.decode_levels.launches, P.probe.launches
+
+
+def _codes(bv, scan):
+    """Codes a decode must read once: outdegree, reference, block count and
+    blocks, interval count and intervals, residuals."""
+    import numpy as np
+
+    s = bv.settings
+    d = scan.d.astype(np.int64)
+    ref = scan.ref.astype(np.int64)
+    extra = np.where(ref > 0, d - scan.copied.astype(np.int64), d)
+    extra[d == 0] = 0
+    return int((1 + ((d > 0) & (s.window_size > 0))
+                + (ref > 0) * (1 + scan.block_count.astype(np.int64))
+                + ((extra > 0) & (s.min_interval_length != 0))
+                * (1 + 2 * scan.int_count.astype(np.int64))
+                + scan.res_count.astype(np.int64)).sum())
+
+
+def _bound(nbytes, ops):
+    """Least time (ms, and what bounds it) for moving ``nbytes`` and doing
+    ``ops`` 32-bit integer operations on one H100: 3.35 TB/s, and 67 T
+    32-bit operations/s outside the tensor cores (the H100 SXM's published
+    float32 rate, taken for the integer rate)."""
+    t_bytes = nbytes / 3.35e12 * 1e3
+    t_ops = ops / 67e12 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_main(bv, label, card):
@@ -253,10 +309,10 @@ def phase_main(bv, label, card):
     import torch
 
     import webgraph_tpu_torch as wgt
-    from webgraph_tpu.pallas.plan import scan_structure
     from webgraph_tpu_torch.formats import bvgraph as F
     from webgraph_tpu_torch.kernels import decode2 as D2
-    from webgraph_tpu_torch.kernels import pcodes as P
+    from webgraph_tpu_torch.kernels.plan import scan_structure
+    from webgraph_tpu_torch.profile_levels import cuda_ms
 
     n, m = bv.num_nodes(), bv.num_arcs()
     scan = scan_structure(bv)
@@ -266,6 +322,7 @@ def phase_main(bv, label, card):
     t0 = time.perf_counter()
     prep = F.prepare(bv, "cuda")
     plan_s = time.perf_counter() - t0
+    check(isinstance(prep, F.Prepared), f"{label}: not routed to K1")
     max_steps = max(p.max_steps for p in prep.tiles)
     print(f"{label}: n {n} m {m} copied {copied:.4f} interval "
           f"{iarcs / m:.4f} max_steps {max_steps} tiles {len(prep.tiles)} "
@@ -274,12 +331,11 @@ def phase_main(bv, label, card):
     check(iarcs > 0, f"{label}: no interval arcs")
 
     # the main path, through the public entry point, counted
-    D2.decode_lanes.launches = 0
-    P.probe.launches = 0
+    _reset_counts()
     off, succ = wgt.decode_to_csr(bv, device="cuda")
     torch.cuda.synchronize()
-    launches = D2.decode_lanes.launches
-    check(launches > 0, f"{label}: K1 was not launched")
+    k1, k2, _ = _counts()
+    check(k1 > 0 and k2 == 0, f"{label}: launches K1 {k1} K2 {k2}")
     _csr_vs_oracle(bv, off, succ, label)
 
     # timing, planning excluded: warm-up, then median of 5
@@ -299,12 +355,163 @@ def phase_main(bv, label, card):
     plain_ms = a.elapsed_time(b)
     D2.check_errors(perr)
     err = _slab_err(slab, wp, pslab, pwp)
-    print(f"{label}: decode {decode_ms:.4f} ms = {m / decode_ms / 1e3:.2f} "
-          f"Medges/s; K1 kernel (tile 0) {kernel_ms:.4f} ms; plain decoder "
-          f"(tile 0) {plain_ms:.1f} ms = {m / plain_ms / 1e3:.3f} Medges/s; "
-          f"card {card}")
-    return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "decode_ms": decode_ms}
+    # bound of the decode: the stream and bit offsets read once, the CSR
+    # offsets and tile 0's successors written once (one tile at size)
+    nbytes = (prep.words.numel() * 8 + prep.bo.numel() * 8
+              + prep.offsets.numel() * 8 + int(wp.long().sum()) * 4)
+    bound_ms, bound_by = _bound(nbytes, _codes(bv, scan) + m)
+    print(f"{label}: launches K1 {k1} K2 {k2}; decode {decode_ms:.4f} ms = "
+          f"{m / decode_ms / 1e3:.2f} Medges/s; K1 kernel (tile 0) "
+          f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes); "
+          f"plain decoder (tile 0) {plain_ms:.1f} ms = "
+          f"{m / plain_ms / 1e3:.3f} Medges/s; card {card}")
+    return {"launches": k1, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "decode_ms": decode_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _k2_graphs():
+    """The graph set of tests/test_pallas_decode.py and config 3's
+    deep-chain graph stored with unbounded maxref: (name, graph, store
+    keywords, meant for K2 only)."""
+    from webgraph_tpu_torch.graph.builders import MutableGraph
+    from webgraph_tpu_torch.graph.csr import CSRGraph
+    from webgraph_tpu_torch.synth import MAXREF_INF, deep_chain_graph
+
+    er = MutableGraph.erdos_renyi
+    structures = [sorted(set(v for v in list(range(x + 1, x + 20))
+                             + [200 + (x % 7), 300 + 2 * (x % 11)] if v < 400))
+                  for x in range(120)] + [[]] * 280
+    deep = [sorted(set(range(0, 1 + x % 37)) | {399 - (x % 5)})
+            for x in range(200)] + [[]] * 200
+    graphs = [
+        (f"er_w{w}r{r}i{i}", er(n, p, seed=s),
+         dict(window_size=w, max_ref_count=r, min_interval_length=i), False)
+        for w, r, i, s, n, p in [(7, 3, 4, 0, 300, 0.03),
+                                 (7, 3, 3, 1, 200, 0.08),
+                                 (0, 0, 4, 2, 150, 0.05),
+                                 (1, 1, 0, 3, 150, 0.05),
+                                 (2, 2, 2, 4, 250, 0.04),
+                                 (7, 7, 2, 5, 400, 0.02)]]
+    graphs += [
+        ("multiblock", er(400, 0.03, seed=11), {}, False),
+        ("structures", CSRGraph.from_lists(structures), {}, False),
+        ("deep_chains", CSRGraph.from_lists(deep),
+         dict(window_size=7, max_ref_count=100, min_interval_length=2), False),
+        ("empty_and_single", CSRGraph.from_lists([[], [0], [], [1, 2], []]),
+         {}, False),
+    ]
+    g = deep_chain_graph()
+    # minint 2 is held to the plain decoder by the stress phase
+    graphs += [(f"deep-chain-config3-minint{i}", g,
+                dict(window_size=7, max_ref_count=MAXREF_INF,
+                     min_interval_length=i), True) for i in (0, 4, 8)]
+    return graphs
+
+
+def _k2_vs_plain(prep):
+    """K2 against its plain version; returns (succ, max |kernel - plain|,
+    plain ms)."""
+    import torch
+
+    from webgraph_tpu_torch.kernels import decode as K2
+
+    args = (prep.words, prep.bo, prep.order, prep.bounds, prep.offsets,
+            prep.skey)
+    succ = K2.decode_levels(*args)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    psucc, perr = K2.decode_levels_plain(*args)
+    b.record()
+    torch.cuda.synchronize()
+    K2.check_errors(perr, prep.order)
+    err = int((succ.long() - psucc.long()).abs().max()) if succ.numel() else 0
+    check(err == 0, f"K2 differs from plain (max |err| {err})")
+    return succ, err, a.elapsed_time(b)
+
+
+def phase_k2_small(tmp):
+    from webgraph_tpu_torch.kernels import decode as K2
+    from webgraph_tpu_torch.kernels import decode2 as D2
+    from webgraph_tpu_torch.kernels.plan import scan_structure
+
+    graphs = _k2_graphs()
+    for name, g, kw, k2_only in graphs:
+        bv = _store(g, tmp, name, **kw)
+        scan = scan_structure(bv)
+        if k2_only:
+            check(not D2.supports(bv, scan), f"K2 {name}: K1 supports it")
+        prep = K2.prepare(bv, "cuda", scan=scan)
+        succ, _, _ = _k2_vs_plain(prep)
+        _csr_vs_oracle(bv, prep.offsets, succ, f"K2 {name}")
+        print(f"K2 small {name}: n {bv.num_nodes()} m {bv.num_arcs()} "
+              f"levels {len(prep.bounds) - 1} exact vs plain and oracle")
+    print(f"K2 small: {len(graphs)} graphs exact vs plain decoder and oracle")
+
+
+def phase_k2_main(bv, label, card):
+    """K2's main path: the public entry point on a graph K1 does not take,
+    counted, checked, then timed with planning excluded."""
+    import numpy as np
+    import torch
+
+    import webgraph_tpu_torch as wgt
+    from webgraph_tpu_torch.formats import bvgraph as F
+    from webgraph_tpu_torch.kernels import decode as K2
+    from webgraph_tpu_torch.kernels import decode2 as D2
+    from webgraph_tpu_torch.kernels.plan import scan_structure
+    from webgraph_tpu_torch.profile_levels import cuda_ms
+
+    n, m = bv.num_nodes(), bv.num_arcs()
+    t0 = time.perf_counter()
+    scan = scan_structure(bv)
+    scan_s = time.perf_counter() - t0
+    check(not D2.supports(bv, scan), f"{label}: K1 supports it")
+    depth = scan.depth.astype(np.int64)
+    reach = int((np.arange(n) - D2._minanc(scan, n)).max(initial=0))
+    t0 = time.perf_counter()
+    prep = F.prepare(bv, "cuda")
+    plan_s = time.perf_counter() - t0
+    check(isinstance(prep, K2.LevelPrepared), f"{label}: not routed to K2")
+    sizes = np.diff(prep.bounds)
+    levels = len(sizes)
+
+    # the main path, through the public entry point, counted
+    _reset_counts()
+    off, succ = wgt.decode_to_csr(bv, device="cuda")
+    torch.cuda.synchronize()
+    k1, k2, _ = _counts()
+    check(k1 == 0 and k2 == levels,
+          f"{label}: launches K1 {k1} K2 {k2}, levels {levels}")
+    _csr_vs_oracle(bv, off, succ, label)
+
+    # timing, planning excluded: warm-up, then median of 5
+    F.decode_prepared(prep)
+    decode_ms = cuda_ms(lambda: F.decode_prepared(prep), 5)
+    args = (prep.words, prep.bo, prep.order, prep.bounds, prep.offsets,
+            prep.skey)
+    kernel_ms = cuda_ms(lambda: K2.decode_levels(*args), 5)
+    ksucc, err, plain_ms = _k2_vs_plain(prep)
+    check(torch.equal(ksucc, succ), f"{label}: K2 runs differ")
+    # bound of the decode: the stream and bit offsets read once, the CSR
+    # offsets and successors written once
+    nbytes = (prep.words.numel() * 8 + prep.bo.numel() * 8
+              + prep.offsets.numel() * 8 + m * 4)
+    bound_ms, bound_by = _bound(nbytes, _codes(bv, scan) + m)
+    print(f"{label}: n {n} m {m} reach {reach} max depth {int(depth.max())} "
+          f"levels {levels} (nodes per level: median "
+          f"{float(np.median(sizes)):.0f}, max {int(sizes.max())}; "
+          f"{int((depth < 100).sum())} nodes at depth < 100); scan "
+          f"{scan_s:.2f} s, plan {plan_s:.2f} s")
+    print(f"{label}: launches K1 {k1} K2 {k2}; decode {decode_ms:.4f} ms = "
+          f"{m / decode_ms / 1e3:.2f} Medges/s; K2 kernel {kernel_ms:.4f} ms "
+          f"({kernel_ms / levels * 1e3:.2f} us a level), bound "
+          f"{bound_ms:.4f} ms ({nbytes} bytes); plain decoder "
+          f"{plain_ms:.1f} ms; card {card}")
+    return {"launches": k2, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "decode_ms": decode_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main():
@@ -315,8 +522,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import webgraph_tpu_torch  # noqa: F401  (fails outside the repo)
-    from webgraph_tpu.formats.bvgraph import BVGraph
-    from webgraph_tpu_torch.synth import weblike_graph
+    from webgraph_tpu_torch.formats.bvgraph import BVGraph
 
     card = phase_device()
     phase_build()
@@ -324,34 +530,48 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_k1_small(tmp)
         t0 = time.perf_counter()
-        g = weblike_graph(seed=SEED)
-        bv = _store(g, tmp, "weblike", window_size=7, max_ref_count=3,
-                    min_interval_length=3, zeta_k=3)
+        bv = _cell(tmp, "weblike-cnr2000-size")
         print(f"synthetic graph: {time.perf_counter() - t0:.2f} s to make "
               f"and store")
-        main_run = phase_main(bv, "weblike-cnr2000-size", card)
-    if os.path.exists(CNR2000 + ".graph"):
-        phase_main(BVGraph.load(CNR2000), "cnr-2000", card)
-    else:
-        print(f"cnr-2000: skipped ({CNR2000}.graph not present)")
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-    check(not leaked, f"the port imported JAX: {leaked[:5]}")
+        k1 = phase_main(bv, "weblike-cnr2000-size", card)
+        if os.path.exists(CNR2000 + ".graph"):
+            phase_main(BVGraph.load(CNR2000), "cnr-2000", card)
+        else:
+            print(f"cnr-2000: skipped ({CNR2000}.graph not present)")
+        phase_k2_small(tmp)
+        label = "weblike-cnr2000-size-maxref-inf"
+        k2 = phase_k2_main(_cell(tmp, label), label, card)
+        label = "deep-chain-config3-minint2"
+        phase_k2_main(_cell(tmp, label), label, card)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "webgraph_tpu"))
+    check(not leaked, f"the port imported JAX or webgraph_tpu: {leaked[:5]}")
 
     kernels = [
         {"name": "k1_decode2", "route": "cuda",
          "source": "webgraph_tpu_torch/csrc/decode2.cu",
          "replaces": "webgraph_tpu/pallas/decode2.py:617",
-         "launches": main_run["launches"],
-         "max_abs_err": main_run["max_abs_err"],
-         "ms": main_run["ms"], "plain_ms": main_run["plain_ms"]},
-        # K0 is device code inlined into K1: it runs in every K1 launch, and
-        # is timed on its own through its probe kernel
+         "launches": k1["launches"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
+        # K0 is device code inlined into K1 and K2: it runs in every launch
+        # of theirs, and is timed on its own through its probe kernel
         {"name": "k0_pcodes", "route": "cuda",
          "source": "webgraph_tpu_torch/csrc/pcodes.cuh",
          "replaces": "webgraph_tpu/pallas/pcodes.py:107",
-         "launches": main_run["launches"], "inlined_in": "k1_decode2",
-         "max_abs_err": k0["max_abs_err"],
-         "ms": k0["ms"], "plain_ms": k0["plain_ms"]},
+         "launches": k1["launches"] + k2["launches"],
+         "inlined_in": ["k1_decode2", "k2_decode"],
+         "max_abs_err": k0["max_abs_err"], "ms": k0["ms"],
+         "plain_ms": k0["plain_ms"], "bound_ms": k0["bound_ms"],
+         "bound_by": k0["bound_by"], "library_ms": None},
+        {"name": "k2_decode", "route": "cuda",
+         "source": "webgraph_tpu_torch/csrc/decode.cu",
+         "replaces": "webgraph_tpu/pallas/decode.py:423",
+         "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

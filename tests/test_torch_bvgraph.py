@@ -2,7 +2,8 @@
 oracle bvgraph_np.decode_to_csr, exactly, on the graph set of
 tests/test_pallas_decode2.py: on the CPU through the plain decoder, and on
 the card through the K1 kernel, which must also equal the plain decoder in
-every written slab slot.  No JAX here, so the card tests run without it."""
+every written slab slot.  Only the port's own modules here: no JAX and
+nothing of the JAX package, so the card tests run without them."""
 
 import os
 
@@ -10,14 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from webgraph_tpu.bits import codes as C
-from webgraph_tpu.formats import bvgraph_np
-from webgraph_tpu.formats.bvgraph import BVGraph, BVGraphSettings
-from webgraph_tpu.graph.builders import MutableGraph
-from webgraph_tpu.graph.csr import CSRGraph
 import webgraph_tpu_torch as wgt
+from webgraph_tpu_torch.bits import codes as C
 from webgraph_tpu_torch.formats import bvgraph as F
+from webgraph_tpu_torch.formats import bvgraph_np
+from webgraph_tpu_torch.formats.bvgraph import BVGraph, BVGraphSettings
+from webgraph_tpu_torch.graph.builders import MutableGraph
+from webgraph_tpu_torch.graph.csr import CSRGraph
 from webgraph_tpu_torch.kernels import decode2 as D2
+from webgraph_tpu_torch.kernels.plan import scan_structure
 from webgraph_tpu_torch.synth import weblike_graph
 
 
@@ -111,15 +113,13 @@ def test_decode_matches_oracle(name, tmp_path):
 
 def test_to_csr_matches_host_backend(tmp_path):
     bv, _ = _stored("default", tmp_path)
-    off, succ = wgt.to_csr(bv)
+    off, succ = wgt.to_csr(bv, device="cpu")
     hoff, hsucc = bv.to_csr(backend="numpy")
     np.testing.assert_array_equal(off, hoff)
     np.testing.assert_array_equal(succ, hsucc)
 
 
 def test_weblike_graph_exercises_every_record_part(tmp_path):
-    from webgraph_tpu.pallas.plan import scan_structure
-
     g = weblike_graph(3000, seed=0, hubs=1)
     assert g.num_nodes() == 3000
     assert 8 * 3000 < g.num_arcs() < 14 * 3000

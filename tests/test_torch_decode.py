@@ -1,0 +1,201 @@
+"""K2: the port's chain-depth level decoder (webgraph_tpu_torch/kernels/
+decode.py) and the routed bulk decode, against the host oracle, exactly:
+on the CPU through the plain PyTorch decoder, on the card through the K2
+kernel, which must also equal the plain decoder.  The graph set is that of
+tests/test_pallas_decode.py plus config 3's deep-chain graph stored with
+unbounded maxref.  The routing is held to the JAX package's
+``decode_to_csr_auto`` by tests/test_torch_route.py."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import webgraph_tpu_torch as wgt
+from webgraph_tpu_torch.formats import bvgraph as F
+from webgraph_tpu_torch.formats import bvgraph_np
+from webgraph_tpu_torch.formats.bvgraph import BVGraph
+from webgraph_tpu_torch.graph.builders import MutableGraph
+from webgraph_tpu_torch.graph.csr import CSRGraph
+from webgraph_tpu_torch.kernels import decode as K2
+from webgraph_tpu_torch.kernels import decode2 as D2
+from webgraph_tpu_torch.kernels.plan import scan_structure
+from webgraph_tpu_torch.synth import deep_chain_graph
+
+MAXREF_INF = 2**31 - 1
+
+
+def _structures():
+    lists = []
+    for x in range(120):
+        base = list(range(x + 1, x + 20)) + [200 + (x % 7), 300 + 2 * (x % 11)]
+        lists.append(sorted(set(v for v in base if v < 400)))
+    return CSRGraph.from_lists(lists + [[]] * 280)
+
+
+def _deep_chains():
+    lists = []
+    for x in range(200):
+        lists.append(sorted(set(range(0, 1 + x % 37)) | {399 - (x % 5)}))
+    return CSRGraph.from_lists(lists + [[]] * 200)
+
+
+def _er(n, p, seed):
+    return lambda: MutableGraph.erdos_renyi(n, p, seed=seed)
+
+
+# name -> (graph factory, store keywords, meant for K2 only)
+GRAPHS = {
+    **{f"er_w{w}r{r}i{i}": (_er(n, p, s), dict(
+        window_size=w, max_ref_count=r, min_interval_length=i), False)
+       for w, r, i, s, n, p in [(7, 3, 4, 0, 300, 0.03), (7, 3, 3, 1, 200, 0.08),
+                                (0, 0, 4, 2, 150, 0.05), (1, 1, 0, 3, 150, 0.05),
+                                (2, 2, 2, 4, 250, 0.04), (7, 7, 2, 5, 400, 0.02)]},
+    "multiblock": (_er(400, 0.03, 11), {}, False),
+    "structures": (_structures, {}, False),
+    "deep_chains": (_deep_chains, dict(window_size=7, max_ref_count=100,
+                                       min_interval_length=2), False),
+    "empty_and_single": (lambda: CSRGraph.from_lists([[], [0], [], [1, 2], []]),
+                         {}, False),
+    "deep_chain6000_i0": (lambda: deep_chain_graph(6000), dict(
+        window_size=7, max_ref_count=MAXREF_INF, min_interval_length=0), True),
+    "deep_chain6000_i2": (lambda: deep_chain_graph(6000), dict(
+        window_size=7, max_ref_count=MAXREF_INF, min_interval_length=2), True),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _stored(name, tmp):
+    make, kw, _ = GRAPHS[name]
+    g = make()
+    base = os.path.join(tmp, name)
+    BVGraph.store(g, base, **kw)
+    return g, BVGraph.load(base)
+
+
+def _assert_csr(g, off, succ):
+    toff, tsucc = g.to_csr()
+    np.testing.assert_array_equal(off.cpu().numpy(), toff)
+    np.testing.assert_array_equal(succ.cpu().numpy(), tsucc)
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_plain_levels_match_oracle(name, tmp_path):
+    g, bv = _stored(name, tmp_path)
+    prep = K2.prepare(bv, "cpu")
+    assert isinstance(prep, K2.LevelPrepared)
+    succ, err = K2.decode_levels_plain(prep.words, prep.bo, prep.order,
+                                       prep.bounds, prep.offsets, prep.skey)
+    assert succ.dtype == torch.int32 and not err.any()
+    _assert_csr(g, prep.offsets, succ)
+    if GRAPHS[name][2]:
+        assert not D2.supports(bv)
+        assert prep.bounds.size - 1 > 500  # hundreds of chain-depth levels
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_routed_decode_matches_oracle(name, tmp_path):
+    g, bv = _stored(name, tmp_path)
+    launches = (D2.decode_lanes.launches, K2.decode_levels.launches)
+    off, succ = wgt.decode_to_csr(bv, device="cpu")
+    assert off.dtype == torch.int64 and succ.dtype == torch.int32
+    _assert_csr(g, off, succ)
+    prep = F.prepare(bv, "cpu")
+    assert isinstance(prep, K2.LevelPrepared) == (not D2.supports(bv))
+    # CPU tensors take the plain versions: no kernel launched
+    assert (D2.decode_lanes.launches, K2.decode_levels.launches) == launches
+
+
+def test_plan_levels_orders_by_depth(tmp_path):
+    _, bv = _stored("deep_chain6000_i2", tmp_path)
+    scan = scan_structure(bv)
+    plan = K2.plan_levels(bv, scan)
+    order = plan.order.numpy().astype(np.int64)
+    depth = scan.depth.astype(np.int64)
+    assert plan.order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(bv.num_nodes()))
+    assert plan.levels == int(depth.max()) + 1
+    for lvl in (0, 1, plan.levels - 1):
+        nodes = order[plan.bounds[lvl]:plan.bounds[lvl + 1]]
+        assert len(nodes) > 0 and (depth[nodes] == lvl).all()
+        assert (np.diff(nodes) > 0).all()  # stable: ids rise in a level
+    ref = scan.ref.astype(np.int64)
+    kids = np.flatnonzero(ref > 0)
+    assert (depth[kids - ref[kids]] == depth[kids] - 1).all()
+    assert plan.offsets.dtype == torch.int64
+    np.testing.assert_array_equal(np.diff(plan.offsets.numpy()), scan.d)
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("stream", "invalid code"),
+    ("offsets", "record counts disagree"),
+    ("window", "reference beyond the window"),
+])
+def test_node_errors_raise(fault, message, tmp_path):
+    """A node whose stream holds no valid code, whose outdegree disagrees
+    with its CSR slot or whose reference reaches past the window fails
+    loudly instead of returning garbage."""
+    _, bv = _stored("deep_chain6000_i2", tmp_path)
+    prep = K2.prepare(bv, "cpu")
+    words, offsets, skey = prep.words, prep.offsets, prep.skey
+    if fault == "stream":
+        words = torch.zeros_like(words)
+    elif fault == "offsets":
+        offsets = offsets.clone()
+        offsets[1] += 1  # node 0 one arc longer, node 1 one shorter
+    else:
+        skey = skey[:6] + (1,) + skey[7:]
+    with pytest.raises(RuntimeError, match=message):
+        K2.decode_levels(words, prep.bo, prep.order, prep.bounds, offsets,
+                         skey)
+
+
+def test_to_csr_routes_through_the_device_path(tmp_path):
+    g, bv = _stored("deep_chain6000_i0", tmp_path)
+    off, succ = bv.to_csr(backend="device", device="cpu")
+    toff, tsucc = bvgraph_np.decode_to_csr(bv)
+    np.testing.assert_array_equal(off, toff)
+    np.testing.assert_array_equal(succ, tsucc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_kernel_matches_plain_and_oracle_on_card(name, tmp_path, cuda):
+    g, bv = _stored(name, tmp_path)
+    prep = K2.prepare(bv, cuda)
+    before = K2.decode_levels.launches
+    succ = K2.decode_levels(prep.words, prep.bo, prep.order, prep.bounds,
+                            prep.offsets, prep.skey)
+    torch.cuda.synchronize()
+    assert K2.decode_levels.launches == before + prep.bounds.size - 1
+    psucc, perr = K2.decode_levels_plain(prep.words, prep.bo, prep.order,
+                                         prep.bounds, prep.offsets, prep.skey)
+    assert not perr.any()
+    assert torch.equal(succ, psucc)
+    _assert_csr(g, prep.offsets, succ)
+    off, succ = wgt.decode_to_csr(bv)
+    assert succ.device.type == "cuda"
+    _assert_csr(g, off, succ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kernel", [("er_w7r3i4", "k1"),
+                                         ("deep_chain6000_i2", "k2")])
+def test_bvgraph_to_csr_defaults_to_the_card(name, kernel, tmp_path, cuda,
+                                             monkeypatch):
+    """``BVGraph.to_csr()`` with no arguments launches K1 or K2."""
+    monkeypatch.delenv("WGT_DECODE_BACKEND", raising=False)
+    g, bv = _stored(name, tmp_path)
+    before = (D2.decode_lanes.launches, K2.decode_levels.launches)
+    off, succ = bv.to_csr()
+    after = (D2.decode_lanes.launches, K2.decode_levels.launches)
+    rose = [b > a for a, b in zip(before, after)]
+    assert rose == [kernel == "k1", kernel == "k2"]
+    _assert_csr(g, torch.from_numpy(off), torch.from_numpy(succ))

@@ -1,0 +1,194 @@
+"""The port's copies of the host modules against their JAX-package
+originals, on the graph set of tests/test_torch_bvgraph.py: the same bytes
+from BVGraph.store (Python and native encoders), each package loading the
+other's files, the same structure scan and the same NumPy decode.  Exact.
+
+None of the modules compared here imports JAX; the JAX package's are
+imported only as the reference."""
+
+import hashlib
+import os
+
+import numpy as np
+import pytest
+
+from test_torch_bvgraph import GRAPHS
+from webgraph_tpu.bits import bitstream as JBS
+from webgraph_tpu.bits import codes as JC
+from webgraph_tpu.bits import vcodes as JV
+from webgraph_tpu.bits.elias_fano import EliasFanoMonotoneList as JEF
+from webgraph_tpu.formats import bvgraph_np as J_np
+from webgraph_tpu.formats.bvgraph import BVGraph as JBV
+from webgraph_tpu.graph.builders import MutableGraph as JMG
+from webgraph_tpu.graph.properties import load_properties as j_load_props
+from webgraph_tpu.pallas.plan import scan_structure as j_scan
+import webgraph_tpu_torch as wgt
+from webgraph_tpu_torch import native
+from webgraph_tpu_torch.bits import bitstream as PBS
+from webgraph_tpu_torch.bits import codes as PC
+from webgraph_tpu_torch.bits import vcodes as PV
+from webgraph_tpu_torch.bits.elias_fano import EliasFanoMonotoneList as PEF
+from webgraph_tpu_torch.formats import bvgraph_np as P_np
+from webgraph_tpu_torch.formats.bvgraph import BVGraph as PBV
+from webgraph_tpu_torch.graph.builders import MutableGraph as PMG
+from webgraph_tpu_torch.graph.csr import CSRGraph
+from webgraph_tpu_torch.graph.properties import store_properties
+from webgraph_tpu_torch.kernels.plan import scan_structure as p_scan
+from webgraph_tpu_torch.synth import weblike_graph
+
+_EXT = (".graph", ".offsets", ".properties")
+
+
+def _kw(name):
+    return GRAPHS[name][1]
+
+
+def _files(base):
+    return {ext: open(base + ext, "rb").read() for ext in _EXT}
+
+
+@pytest.fixture(scope="module")
+def stored(tmp_path_factory):
+    """name -> (graph, port basename, JAX basename); both stored with the
+    native encoders."""
+    tmp = tmp_path_factory.mktemp("host")
+    out = {}
+    for name, (make, kw, _) in GRAPHS.items():
+        g = make()
+        pb, jb = os.path.join(tmp, f"p_{name}"), os.path.join(tmp, f"j_{name}")
+        PBV.store(g, pb, **kw)
+        JBV.store(g, jb, **kw)
+        out[name] = (g, pb, jb)
+    return out
+
+
+@pytest.mark.parametrize("use_native", [False, True], ids=["python", "native"])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_store_writes_the_same_bytes(name, use_native, tmp_path):
+    if use_native:
+        assert native.available()
+    g = GRAPHS[name][0]()
+    pb, jb = os.path.join(tmp_path, "p"), os.path.join(tmp_path, "j")
+    PBV.store(g, pb, use_native=use_native, **_kw(name))
+    JBV.store(g, jb, use_native=use_native, **_kw(name))
+    assert _files(pb) == _files(jb)
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_each_package_loads_the_others_files(name, stored):
+    g, pb, jb = stored[name]
+    toff, tsucc = g.to_csr()
+    for bv in (PBV.load(jb), JBV.load(pb), wgt.load(jb)):
+        for backend in ("native", "numpy", "scalar"):
+            off, succ = bv.to_csr(backend=backend)
+            np.testing.assert_array_equal(off, toff)
+            np.testing.assert_array_equal(succ, tsucc)
+    np.testing.assert_array_equal(PBV.load(jb).bit_offsets,
+                                  JBV.load(jb).bit_offsets)
+    assert j_load_props(pb + ".properties") == j_load_props(jb + ".properties")
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_scan_and_numpy_decode_match(name, stored):
+    _, pb, _ = stored[name]
+    pbv, jbv = PBV.load(pb), JBV.load(pb)
+    ps, js = p_scan(pbv), j_scan(jbv)
+    for f in ("d", "ref", "block_count", "int_count", "res_count", "copied",
+              "depth", "pos_after_ic"):
+        a, b = getattr(ps, f), getattr(js, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for a, b in zip(P_np.decode_to_csr(pbv), J_np.decode_to_csr(jbv)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_random_access_matches(stored):
+    _, pb, _ = stored["deep_chains"]
+    pbv, jbv = PBV.load(pb), JBV.load(pb)
+    for x in range(0, pbv.num_nodes(), 7):
+        np.testing.assert_array_equal(pbv.successors(x), jbv.successors(x))
+        assert pbv.outdegree(x) == jbv.outdegree(x)
+
+
+@pytest.mark.parametrize("coding,k", [
+    (JC.GAMMA, 0), (JC.DELTA, 0), (JC.UNARY, 0), (JC.NIBBLE, 0),
+    (JC.GOLOMB, 5), *[(JC.ZETA, k) for k in range(1, 8)]])
+def test_codes_and_bitstreams_match(coding, k):
+    rng = np.random.default_rng(coding * 10 + k)
+    vals = np.concatenate([np.arange(40), rng.integers(0, 1 << 20, 300)])
+    if coding == JC.UNARY:
+        vals = vals % 200
+    pobs, jobs = PBS.OutputBitStream(), JBS.OutputBitStream()
+    for v in vals:
+        assert pobs.write(coding, int(v), k) == jobs.write(coding, int(v), k)
+        assert PC.code_length(coding, int(v), k) == \
+            JC.code_length(coding, int(v), k)
+    data = pobs.to_bytes()
+    assert data == jobs.to_bytes()
+    ibs = PBS.InputBitStream(data)
+    assert [ibs.read(coding, k) for _ in vals] == [int(v) for v in vals]
+    if coding in (JC.GAMMA, JC.DELTA, JC.ZETA, JC.UNARY):
+        words = np.concatenate([PBS.bytes_to_words(data),
+                                np.zeros(2, np.uint64)])
+        pos = np.zeros(1, dtype=np.int64)
+        pr, jr = PV.make_reader(coding, k), JV.make_reader(coding, k)
+        for v in vals[:50]:
+            (a, pa), (b, pbb) = pr(words, pos), jr(words, pos)
+            assert int(a[0]) == int(b[0]) == int(v)
+            assert int(pa[0]) == int(pbb[0])
+            pos = pa
+
+
+def test_elias_fano_and_properties_match(tmp_path):
+    rng = np.random.default_rng(3)
+    vals = np.cumsum(rng.integers(0, 1000, 5000)).astype(np.int64)
+    pe, je = PEF(vals), JEF(vals)
+    np.testing.assert_array_equal(pe.get_array(), je.get_array())
+    assert [int(pe.get(i)) for i in range(0, 5000, 97)] == \
+        [int(je.get(i)) for i in range(0, 5000, 97)]
+    props = {"nodes": 5, "graphclass": "BVGraph", "comment": "a=b"}
+    store_properties(os.path.join(tmp_path, "x.properties"), props)
+    assert j_load_props(os.path.join(tmp_path, "x.properties")) == \
+        {k: str(v) for k, v in props.items()}
+
+
+def test_builders_match():
+    for n, p, m, seed in ((200, 0.05, None, 1), (3000, 0.0, 30000, 11)):
+        a = PMG.erdos_renyi(n, p, m=m, seed=seed).to_csr()
+        b = JMG.erdos_renyi(n, p, m=m, seed=seed).to_csr()
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_load_maps_only_bvgraph(tmp_path):
+    base = os.path.join(tmp_path, "ef")
+    store_properties(base + ".properties",
+                     {"graphclass": "it.unimi.dsi.webgraph.EFGraph"})
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        wgt.load(base)
+    g = CSRGraph.from_lists([[1], [0, 2], []])
+    PBV.store(g, os.path.join(tmp_path, "bv"))
+    assert isinstance(wgt.load(os.path.join(tmp_path, "bv")), PBV)
+
+
+def test_native_codec_builds_in_the_port(tmp_path):
+    """g++ builds the port's codec into webgraph_tpu_torch/build/."""
+    lib = native.get_lib()
+    assert lib is not None
+    assert os.path.dirname(lib._name) == native._BUILD_DIR
+
+
+def test_weblike_graph_is_unchanged_without_big_sites():
+    """At big_sites 0 no extra random numbers are drawn: the graph is the
+    one the bulk-decode cell has used since it was added."""
+    g = weblike_graph(seed=0)
+    assert (g.num_nodes(), g.num_arcs()) == (325_557, 3_218_945)
+    h = hashlib.sha256(g.offsets.tobytes() + g.succ.tobytes()).hexdigest()
+    assert h == ("c580d275b3c3257559c89aae4f6dfcb91b8402bc"
+                 "61c1a6adfa32f27baefd3413")
+    a = weblike_graph(20_000, seed=0, big_sites=0.005)
+    b = weblike_graph(20_000, seed=0, big_sites=0.005)
+    assert a.num_nodes() == 20_000
+    np.testing.assert_array_equal(a.succ, b.succ)
+    assert a.num_arcs() != weblike_graph(20_000, seed=0).num_arcs()

@@ -1,5 +1,6 @@
-"""The PyTorch port imports without JAX and without the CUDA toolkit, and its
-kernel wrappers launch nothing for CPU tensors."""
+"""The PyTorch port imports without JAX, without the JAX package
+(webgraph_tpu) and without the CUDA toolkit, and its kernel wrappers launch
+nothing for CPU tensors."""
 
 import os
 import subprocess
@@ -12,28 +13,38 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCK_JAX = r"""
+import pkgutil
 import sys
+
+BLOCKED = ("jax", "jaxlib", "webgraph_tpu")
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
         return None
 
 sys.meta_path.insert(0, BlockJax())
 import webgraph_tpu_torch
-import webgraph_tpu_torch.formats.bvgraph
-import webgraph_tpu_torch.kernels._build
-import webgraph_tpu_torch.kernels.decode2
-import webgraph_tpu_torch.kernels.pcodes
-import webgraph_tpu_torch.synth
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+names = [m.name for m in pkgutil.walk_packages(webgraph_tpu_torch.__path__,
+                                               "webgraph_tpu_torch.")]
+for name in names:
+    __import__(name)
+for name in ("bits.bitstream", "bits.codes", "bits.vcodes", "bits.elias_fano",
+             "graph.builders", "graph.csr", "graph.immutable_graph",
+             "graph.properties", "formats.bvgraph", "formats.bvgraph_np",
+             "kernels._build", "kernels.decode", "kernels.decode2",
+             "kernels.pcodes", "kernels.plan", "native", "synth"):
+    assert "webgraph_tpu_torch." + name in names, name
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ok")
 """
 
 
 def test_imports_with_jax_blocked():
+    """Every module of the port imports with jax, jaxlib and webgraph_tpu
+    blocked (webgraph_tpu_torch itself is not)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _BLOCK_JAX], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -48,27 +59,89 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
-    path = _build.library_path()
-    assert os.path.dirname(path) == _build.BUILD_DIR
-    assert path == _build.library_path()  # keyed by the sources only
+    assert set(_build.SOURCES) == {"decode2.cu", "decode.cu"}
+    paths = [_build.library_path(s) for s in _build.SOURCES]
+    assert len(set(paths)) == len(paths)  # one library per source
+    for src, path in zip(_build.SOURCES, paths):
+        assert os.path.dirname(path) == _build.BUILD_DIR
+        assert path == _build.library_path(src)  # keyed by the sources only
 
 
 def test_cpu_tensors_launch_nothing(tmp_path):
     import webgraph_tpu_torch as wgt
-    from webgraph_tpu.bits import codes as C
-    from webgraph_tpu.formats.bvgraph import BVGraph
-    from webgraph_tpu.graph.builders import MutableGraph
+    from webgraph_tpu_torch.bits import codes as C
+    from webgraph_tpu_torch.formats.bvgraph import BVGraph
+    from webgraph_tpu_torch.graph.builders import MutableGraph
+    from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels import pcodes as P
+    from webgraph_tpu_torch.synth import deep_chain_graph
 
-    k1, k0 = D2.decode_lanes.launches, P.probe.launches
-    g = MutableGraph.erdos_renyi(120, 0.05, seed=3)
+    counts = (D2.decode_lanes.launches, P.probe.launches,
+              K2.decode_levels.launches)
+    for g, kw in ((MutableGraph.erdos_renyi(120, 0.05, seed=3), {}),
+                  (deep_chain_graph(1200), dict(max_ref_count=2**31 - 1,
+                                                min_interval_length=2))):
+        base = os.path.join(tmp_path, "g")
+        BVGraph.store(g, base, **kw)
+        off, succ = wgt.to_csr(wgt.load(base), device="cpu")
+        toff, tsucc = g.to_csr()
+        np.testing.assert_array_equal(off, toff)
+        np.testing.assert_array_equal(succ, tsucc)
+    words = torch.zeros(4, dtype=torch.int64)
+    P.probe(words, torch.zeros(3, dtype=torch.int64), C.GAMMA)
+    assert (D2.decode_lanes.launches, P.probe.launches,
+            K2.decode_levels.launches) == counts
+
+
+@pytest.mark.parametrize("entry", ["decode_to_csr", "to_csr", "prepare",
+                                   "K2.prepare"])
+def test_entry_points_default_to_the_card(entry):
+    """With no device argument the entry points target CUDA."""
+    import inspect
+
+    from webgraph_tpu_torch.formats import bvgraph as F
+    from webgraph_tpu_torch.kernels import decode as K2
+
+    fn = getattr(K2, entry[3:]) if entry.startswith("K2.") \
+        else getattr(F, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(F.BVGraph.to_csr).parameters[
+        "device"].default == "cuda"
+
+
+@pytest.mark.parametrize("cuda_present,codings,on_card", [
+    (True, "default", True),
+    (True, "golomb", False),  # no kernel reads Golomb codes
+    (False, "default", False),
+])
+def test_bvgraph_to_csr_auto_takes_the_card(cuda_present, codings, on_card,
+                                            tmp_path, monkeypatch):
+    """``BVGraph.to_csr()`` with no arguments decodes on the card when one
+    is present and a kernel decodes the graph, else on the host."""
+    from webgraph_tpu_torch.bits import codes as C
+    from webgraph_tpu_torch.formats import bvgraph as F
+    from webgraph_tpu_torch.synth import deep_chain_graph
+
+    s = F.BVGraphSettings(max_ref_count=2**31 - 1, min_interval_length=2)
+    if codings == "golomb":
+        s.codings["RESIDUALS"] = C.GOLOMB
+    g = deep_chain_graph(1200)
     base = os.path.join(tmp_path, "g")
-    BVGraph.store(g, base)
-    off, succ = wgt.to_csr(wgt.load(base))
+    F.BVGraph.store(g, base, settings=s)
+    bv = F.BVGraph.load(base)
+    monkeypatch.delenv("WGT_DECODE_BACKEND", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda_present)
+    devices = []
+    plain_route = F.to_csr
+
+    def device_route(graph, device):
+        devices.append(device)
+        return plain_route(graph, "cpu")
+
+    monkeypatch.setattr(F, "to_csr", device_route)
+    off, succ = bv.to_csr()
+    assert devices == (["cuda"] if on_card else [])
     toff, tsucc = g.to_csr()
     np.testing.assert_array_equal(off, toff)
     np.testing.assert_array_equal(succ, tsucc)
-    words = torch.zeros(4, dtype=torch.int64)
-    P.probe(words, torch.zeros(3, dtype=torch.int64), C.GAMMA)
-    assert (D2.decode_lanes.launches, P.probe.launches) == (k1, k0)

@@ -1,6 +1,7 @@
 """K0: the port's plain PyTorch code readers against the JAX readers of
-webgraph_tpu/pallas/pcodes.py and the scalar bitstream oracle, exactly; the
-probe kernel against the plain readers and the oracle on the card.
+webgraph_tpu/pallas/pcodes.py and the port's copy of the scalar bitstream
+oracle, exactly; the probe kernel against the plain readers and the oracle
+on the card.
 
 JAX is imported inside the tests that compare with it, so the card test
 runs where JAX is not installed."""
@@ -9,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from webgraph_tpu.bits import codes as C
-from webgraph_tpu.bits.bitstream import OutputBitStream, bytes_to_words
+from webgraph_tpu_torch.bits import codes as C
+from webgraph_tpu_torch.bits.bitstream import OutputBitStream, bytes_to_words
 from webgraph_tpu_torch.kernels import pcodes as P
 
 CASES = [("gamma", C.GAMMA, 0), ("delta", C.DELTA, 0)] + [

@@ -31,44 +31,20 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int ERR_CODE = 1;   // a code does not fit the window / the stream
 constexpr int ERR_SLAB = 2;   // the lane's slab row is full
-constexpr int ERR_REF = 3;    // a reference beyond the window
-constexpr int ERR_COUNT = 4;  // the merge ran out of arcs before the outdegree
-
-struct Codings {
-  int outd, ref, bcnt, blk, res, k, window, minint;
-};
-
-// Reads codes at int64 bit cursors and records the first error.
-struct Reader {
-  const uint64_t* w;
-  int64_t nbits;
-  int err;
-
-  __device__ __forceinline__ int64_t read(int64_t& pos, int coding, int k) {
-    if (err) return 0;
-    if (pos < 0 || pos >= nbits) { err = ERR_CODE; return 0; }
-    int len;
-    const uint32_t v = wgt::read_code(wgt::window64(w, pos), coding, k, len);
-    if (len > 64 || pos + len > nbits) { err = ERR_CODE; return 0; }
-    pos += len;
-    return static_cast<int64_t>(v);
-  }
-};
 
 __global__ void __launch_bounds__(THREADS)
 k1_decode2(const uint64_t* __restrict__ words, int64_t nbits,
            const int64_t* __restrict__ bo, const int32_t* __restrict__ gid0v,
            const int32_t* __restrict__ gid0bv, const int32_t* __restrict__ cntv,
            const int32_t* __restrict__ cntav, const int32_t* __restrict__ d7,
-           const int32_t* __restrict__ d7b, int lanes, int64_t slabw, Codings c,
+           const int32_t* __restrict__ d7b, int lanes, int64_t slabw, wgt::Codings c,
            int32_t* __restrict__ slab, int32_t* __restrict__ wp_out,
            int32_t* __restrict__ err_out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   int32_t* __restrict__ row = slab + static_cast<int64_t>(lane) * slabw;
-  Reader rd{words, nbits, 0};
+  wgt::Reader rd{words, nbits, 0};
   const int64_t INF = INT64_MAX;
 
   const int cnt = cntv[lane];
@@ -100,7 +76,7 @@ k1_decode2(const uint64_t* __restrict__ words, int64_t nbits,
       if (c.window > 0) {
         r = rd.read(cur, c.ref, c.k);
         if (r > 0) {
-          if (r > c.window || r > 7) { rd.err = ERR_REF; break; }
+          if (r > c.window || r > 7) { rd.err = wgt::ERR_REF; break; }
           dp = dring[r - 1];
           pb = fring[r - 1];
           bc = rd.read(cur, c.bcnt, c.k);
@@ -149,7 +125,7 @@ k1_decode2(const uint64_t* __restrict__ words, int64_t nbits,
             cend = dp;
             ++mbk;
           } else {
-            rd.err = ERR_COUNT;
+            rd.err = wgt::ERR_COUNT;
           }
         }
         if (irem == 0 && ileft > 0) {
@@ -191,7 +167,7 @@ k1_decode2(const uint64_t* __restrict__ words, int64_t nbits,
           val = rh;
           rvok = false;
         }
-        if (val == INF) { rd.err = ERR_COUNT; break; }
+        if (val == INF) { rd.err = wgt::ERR_COUNT; break; }
         if (wp >= slabw) { rd.err = ERR_SLAB; break; }
         row[wp++] = static_cast<int32_t>(val);
       }
@@ -250,7 +226,7 @@ extern "C" int wgt_k1_decode2(const void* words, int64_t nbits, const void* bo,
                               int lanes, int64_t slabw, int outd, int ref, int bcnt,
                               int blk, int res, int zeta_k, int window, int minint,
                               void* slab, void* wp, void* err, void* stream) {
-  const Codings c{outd, ref, bcnt, blk, res, zeta_k, window, minint};
+  const wgt::Codings c{outd, ref, bcnt, blk, res, zeta_k, window, minint};
   const int blocks = (lanes + THREADS - 1) / THREADS;
   k1_decode2<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(words), nbits, static_cast<const int64_t*>(bo),

@@ -121,4 +121,32 @@ __device__ __forceinline__ uint32_t read_code(uint64_t x, int coding, int k, int
   }
 }
 
+// Per-thread error codes of the decode kernels (kernels/decode2.py and
+// kernels/decode.py raise them).
+constexpr int ERR_CODE = 1;   // a code does not fit the window / the stream
+constexpr int ERR_REF = 3;    // a reference beyond the window
+constexpr int ERR_COUNT = 4;  // the record's counts disagree
+
+// The graph's codings: decode2.coding_key order.
+struct Codings {
+  int outd, ref, bcnt, blk, res, k, window, minint;
+};
+
+// Reads codes at int64 bit cursors and records the first error.
+struct Reader {
+  const uint64_t* w;
+  int64_t nbits;
+  int err;
+
+  __device__ __forceinline__ int64_t read(int64_t& pos, int coding, int k) {
+    if (err) return 0;
+    if (pos < 0 || pos >= nbits) { err = ERR_CODE; return 0; }
+    int len;
+    const uint32_t v = read_code(window64(w, pos), coding, k, len);
+    if (len > 64 || pos + len > nbits) { err = ERR_CODE; return 0; }
+    pos += len;
+    return static_cast<int64_t>(v);
+  }
+};
+
 }  // namespace wgt

@@ -1,10 +1,12 @@
-"""Build the port's CUDA sources into one shared library at first use.
+"""Build the port's CUDA sources into shared libraries at first use.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into a shared library with a
-plain C interface, which ``ctypes`` loads; nothing includes PyTorch's
-headers, so a build takes seconds.  The library lands in
-``webgraph_tpu_torch/build/`` under a name keyed by a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into a shared library
+of its own with a plain C interface, which ``ctypes`` loads; nothing
+includes PyTorch's headers, so a build takes seconds, and the sources are
+compiled in parallel, one ``nvcc`` each.  The libraries land in
+``webgraph_tpu_torch/build/`` under names keyed by a hash of the source,
+the shared headers and the flags, so an edited source is rebuilt and an
+unchanged one is reused.
 
 Importing this module needs no CUDA toolkit: only :func:`load` does.
 """
@@ -17,11 +19,11 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("decode2.cu",)
 HEADERS = ("pcodes.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -29,18 +31,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-# C entry points of csrc/decode2.cu: every pointer and the stream as void*
+# C entry points of each source: every pointer and the stream as void*
 _SIGNATURES = {
-    # words, nbits, pos, b, n, coding, k, val, len, stream
-    "wgt_k0_probe": (_P, _L, _P, _P, _I, _I, _I, _P, _P, _P),
-    # words, nbits, bo, gid0, gid0b, cnt, cnta, d7, d7b, lanes, slabw,
-    # outd, ref, bcnt, blk, res, zeta_k, window, minint, slab, wp, err, stream
-    "wgt_k1_decode2": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _L,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "decode2.cu": {
+        # words, nbits, pos, b, n, coding, k, val, len, stream
+        "wgt_k0_probe": (_P, _L, _P, _P, _I, _I, _I, _P, _P, _P),
+        # words, nbits, bo, gid0, gid0b, cnt, cnta, d7, d7b, lanes, slabw,
+        # outd, ref, bcnt, blk, res, zeta_k, window, minint, slab, wp, err,
+        # stream
+        "wgt_k1_decode2": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    },
+    "decode.cu": {
+        # words, nbits, bo, offsets, order, bounds (host), levels,
+        # outd, ref, bcnt, blk, res, zeta_k, window, minint, succ, err, stream
+        "wgt_k2_decode": (_P, _L, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    },
 }
+SOURCES = tuple(_SIGNATURES)
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
 
 
 def nvcc_path() -> str:
@@ -57,40 +69,63 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
+    """Where the library of ``source`` (a name in :data:`SOURCES`) lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in (source,) + HEADERS:
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libwgt_torch_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libwgt_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def _compile(so: str) -> None:
+def _compile(todo: dict) -> None:
+    """Run one nvcc per source, all at once: ``todo`` maps source to .so."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
+    nvcc = nvcc_path()
+    procs = []
+    for src, so in todo.items():
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        procs.append((src, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    try:
+        for src, so, tmp, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode}):\n{err}")
+            else:
+                os.replace(tmp, so)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, compiled on first call and then cached."""
+def load() -> types.SimpleNamespace:
+    """The kernels' C entry points by name, compiled on first call and then
+    cached."""
     global _lib
     with _lock:
         if _lib is None:
-            so = library_path()
-            if not os.path.exists(so):
-                _compile(so)
-            lib = ctypes.CDLL(so)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = lib
+            paths = {src: library_path(src) for src in SOURCES}
+            todo = {s: p for s, p in paths.items() if not os.path.exists(p)}
+            if todo:
+                _compile(todo)
+            fns = {}
+            for src, path in paths.items():
+                lib = ctypes.CDLL(path)
+                for name, argtypes in _SIGNATURES[src].items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib
 
 

@@ -35,11 +35,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from webgraph_tpu.bits import codes as C
-from webgraph_tpu.bits.bitstream import as_u64_words
-from webgraph_tpu.pallas.plan import scan_structure
+from webgraph_tpu_torch.bits import codes as C
+from webgraph_tpu_torch.bits.bitstream import as_u64_words
 from webgraph_tpu_torch.kernels import _build
 from webgraph_tpu_torch.kernels import pcodes as P
+from webgraph_tpu_torch.kernels.plan import scan_structure
 
 LANES = 1024
 MAX_REACH = 256  # longest reference reach (nodes) a lane's overlap covers
@@ -332,10 +332,11 @@ def plan_tiles(g, scan, *, lanes: int = LANES, slab_cap: int = 8192,
             for p, r in zip(plans, ranges)]
 
 
-def supports(g) -> bool:
+def supports(g, scan=None) -> bool:
     """Whether K1 can decode ``g``: every coding has a window reader
     (GAMMA/DELTA/ZETA/UNARY), window <= 7, and the reference-chain reach is
-    at most :data:`MAX_REACH` nodes."""
+    at most :data:`MAX_REACH` nodes.  ``scan``: the graph's structure scan,
+    where the caller has it."""
     s = g.settings
     ok_codings = all(c in (C.GAMMA, C.DELTA, C.ZETA, C.UNARY) for c in (
         s.outdegree_coding, s.reference_coding, s.block_count_coding,
@@ -345,7 +346,8 @@ def supports(g) -> bool:
     if s.max_ref_count >= 0 and \
             s.window_size * max(s.max_ref_count, 1) <= MAX_REACH:
         return True
-    scan = scan_structure(g)
+    if scan is None:
+        scan = scan_structure(g)
     n = g.num_nodes()
     return int((np.arange(n) - _minanc(scan, n)).max(initial=0)) <= MAX_REACH
 

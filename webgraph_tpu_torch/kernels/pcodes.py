@@ -4,7 +4,7 @@ Counterpart of ``webgraph_tpu/pallas/pcodes.py``.  Each plain reader is a
 function of a 64-bit MSB-first bit window ``(hi, lo)``: two int64 tensors of
 one shape holding uint32 values, bits [pos, pos + 64) of the stream.  It
 returns ``(value, length)`` as int64 tensors, ``value`` in [0, 2**32).
-Semantics are those of the scalar oracle ``webgraph_tpu.bits.bitstream``.
+Semantics are those of the scalar oracle ``webgraph_tpu_torch.bits.bitstream``.
 A length above 64 marks a code that does not fit one window or whose value
 does not fit uint32; the decoders turn it into an error.
 
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from webgraph_tpu.bits import codes as C
+from webgraph_tpu_torch.bits import codes as C
 from webgraph_tpu_torch.kernels import _build
 
 M32 = 0xFFFFFFFF
@@ -161,7 +161,7 @@ def probe(words, pos, coding: int, k: int = 0, b=None):
 
     ``words``: int64 tensor of big-endian uint64 stream words, padded with
     two zero words; ``pos``: int64 bit positions; ``coding``: a
-    ``webgraph_tpu.bits.codes`` id of a coding with a window reader, or
+    ``webgraph_tpu_torch.bits.codes`` id of a coding with a window reader, or
     :data:`MINIMAL_BINARY` with universes ``b`` (int64).  Returns
     ``(value, length)``, int64 and int32.
 

@@ -9,13 +9,19 @@ residuals), and a few hub pages carry lists of thousands of arcs.  Stored
 with cnr-2000's parameters (window 7, maxref 3, minint 3, ζ_3) the
 encoder finds copies, intervals and residuals in all three parts of the
 record, as on a real crawl.
+
+``big_sites`` gives a share of the sites 300-3,000 pages, as on a crawl of
+hosts with thousands of template pages: stored with unbounded reference
+chains (maxref 2**31 - 1), such sites chain hundreds of pages, past the
+reach K1 covers.  :func:`deep_chain_graph` is the deep-chain synthetic
+graph of the JAX package's config 3 (``scripts/bench_configs.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from webgraph_tpu.graph.csr import CSRGraph
+from webgraph_tpu_torch.graph.csr import CSRGraph
 
 CNR2000_NODES = 325_557
 CNR2000_ARCS = 3_216_152
@@ -29,11 +35,18 @@ def _ragged(starts, counts):
 
 
 def weblike_graph(n: int = CNR2000_NODES, seed: int = 0, *,
-                  hubs: int = 12) -> CSRGraph:
-    """A directed graph of ``n`` nodes and about 9.9 arcs per node."""
+                  hubs: int = 12, big_sites: float = 0.0) -> CSRGraph:
+    """A directed graph of ``n`` nodes and about 9.9 arcs per node.
+
+    ``big_sites``: the share of site draws given 300..3,000 pages instead
+    of 1..40.  At 0 no extra random numbers are drawn, so the graph is the
+    same as without the option."""
     rng = np.random.default_rng(seed)
     # sites: runs of 1..40 consecutive pages
     sizes = rng.integers(1, 41, size=n)
+    if big_sites > 0:
+        big = rng.random(n) < big_sites
+        sizes = np.where(big, rng.integers(300, 3001, size=n), sizes)
     sizes = sizes[: int(np.searchsorted(np.cumsum(sizes), n)) + 1]
     sizes[-1] -= int(sizes.sum()) - n
     site_start = np.cumsum(sizes) - sizes
@@ -83,3 +96,35 @@ def weblike_graph(n: int = CNR2000_NODES, seed: int = 0, *,
     dst = np.concatenate([p[1] for p in parts])
     ok = (dst >= 0) & (dst < n) & (dst != src)
     return CSRGraph.from_arcs(src[ok], dst[ok], n, dedup=True)
+
+
+def deep_chain_graph(n: int = 60000, period: int = 37) -> CSRGraph:
+    """Config 3's deep-chain graph: the first n // 2 nodes share prefixes
+    ``0 .. x % period`` (plus two far links), the rest are empty.  Stored
+    with unbounded maxref, its reference chains run thousands deep."""
+    lists = []
+    for x in range(n // 2):
+        lists.append(sorted(set(range(0, 1 + x % period))
+                            | {n - 1 - (x % 5), n // 2 + (x % 97)}))
+    return CSRGraph.from_lists(lists + [[]] * (n - n // 2))
+
+
+MAXREF_INF = 2**31 - 1  # maxref of unbounded reference chains
+
+#: The decode cells at size: name -> (graph maker, ``BVGraph.store``
+#: keywords, the kernel that decodes it).  cnr-2000's parameters are
+#: window 7, maxref 3, minint 3, ζ_3.
+CELLS = {
+    "weblike-cnr2000-size": (
+        weblike_graph,
+        dict(window_size=7, max_ref_count=3, min_interval_length=3,
+             zeta_k=3), "k1"),
+    "weblike-cnr2000-size-maxref-inf": (
+        lambda: weblike_graph(big_sites=0.005),
+        dict(window_size=7, max_ref_count=MAXREF_INF, min_interval_length=3,
+             zeta_k=3), "k2"),
+    "deep-chain-config3-minint2": (
+        deep_chain_graph,
+        dict(window_size=7, max_ref_count=MAXREF_INF,
+             min_interval_length=2), "k2"),
+}
