@@ -19,14 +19,21 @@ through its two routes (K1 for reference chains that reach back at most
    checked against the oracle, then timed (kernel and plain decoder);
    repeated on cnr-2000 itself where the fixture that ``bench.py`` reads
    exists;
-6. K2 small: the level kernel against its plain version and the oracle,
-   exactly, on the graph set of tests/test_pallas_decode.py and config 3's
-   deep-chain graph stored with unbounded maxref at minint 0, 4, 8;
-7. K2 at size, ``weblike-cnr2000-size-maxref-inf``: the web-like graph with
+6. K2's warp compaction: ``k2_compact_probe`` (the helper that
+   ``k2_resolve`` compacts with) on the inputs of the JAX package's
+   ``scripts/pallas_compact_chip.py``, exactly against NumPy, timed;
+7. K2 small: ``k2_parse`` against ``parse_records_plain`` (every slot it
+   writes), the decode (``k2_parse`` then ``k2_resolve``) against the plain
+   decoder and the oracle, exactly, on the graph set of
+   tests/test_pallas_decode.py and config 3's deep-chain graph stored with
+   unbounded maxref at minint 0, 4, 8;
+8. K2 at size, ``weblike-cnr2000-size-maxref-inf``: the web-like graph with
    0.5% of its sites 300-3,000 pages long, stored with unbounded maxref,
-   through the public entry point with the counters reset (K2 launched once
-   a level, K1 not), checked against the oracle, then timed;
-8. K2 stress, ``deep-chain-config3-minint2``: the same on config 3's graph
+   through the public entry point with the counters reset (``k2_parse`` and
+   ``k2_resolve`` launched once each, K1 not), checked against the oracle
+   and the plain versions of both kernels, then timed (each kernel's device
+   time from ``torch.profiler``);
+9. K2 stress, ``deep-chain-config3-minint2``: the same on config 3's graph
    at minint 2, whose chains run 17,819 deep.
 
 It prints a JSON line of per-kernel results and, last, a JSON line with the
@@ -65,7 +72,12 @@ def phase_device():
     return card
 
 
+KERNELS = {"decode2.cu": ("k1_decode2", "k0_probe"),
+           "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe")}
+
+
 def phase_build():
+    """Builds the kernels; returns each kernel's registers."""
     from webgraph_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -73,6 +85,14 @@ def phase_build():
     libs = ", ".join(os.path.basename(_build.library_path(src))
                      for src in _build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.2f} s ({libs})")
+    regs = {}
+    for src, names in KERNELS.items():
+        regs.update(_build.registers(src, names))
+    check(set(regs) == {k for v in KERNELS.values() for k in v},
+          f"ptxas reported registers of {sorted(regs)} only")
+    print("registers (ptxas -v): "
+          + ", ".join(f"{k} {v}" for k, v in regs.items()))
+    return regs
 
 
 def _code_stream(write):
@@ -101,7 +121,7 @@ def phase_k0():
 
     from webgraph_tpu_torch.bits import codes as C
     from webgraph_tpu_torch.kernels import pcodes as P
-    from webgraph_tpu_torch.profile_levels import cuda_ms
+    from webgraph_tpu_torch.profile_k2 import cuda_ms
 
     rng = np.random.default_rng(42)
     vals = np.concatenate([
@@ -265,16 +285,25 @@ def _reset_counts():
 
     D2.decode_lanes.launches = 0
     K2.decode_levels.launches = 0
+    for k in K2.decode_levels.counts:
+        K2.decode_levels.counts[k] = 0
+    K2.parse_records.launches = 0
+    K2.compact_probe.launches = 0
     P.probe.launches = 0
 
 
 def _counts():
-    """(K1, K2, K0 probe) launches since the last reset."""
+    """Launches since the last reset: K1, K2 (both kernels), k2_parse,
+    k2_resolve, and the probes and the parse alone (none on a main path)."""
     from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels import pcodes as P
 
-    return D2.decode_lanes.launches, K2.decode_levels.launches, P.probe.launches
+    c = K2.decode_levels.counts
+    return (D2.decode_lanes.launches, K2.decode_levels.launches,
+            c["k2_parse"], c["k2_resolve"],
+            P.probe.launches + K2.compact_probe.launches
+            + K2.parse_records.launches)
 
 
 def _codes(bv, scan):
@@ -304,6 +333,19 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _events_ms(fn):
+    """(result, milliseconds) of one run of ``fn``, by CUDA events."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def phase_main(bv, label, card):
     import numpy as np
     import torch
@@ -312,7 +354,7 @@ def phase_main(bv, label, card):
     from webgraph_tpu_torch.formats import bvgraph as F
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels.plan import scan_structure
-    from webgraph_tpu_torch.profile_levels import cuda_ms
+    from webgraph_tpu_torch.profile_k2 import cuda_ms
 
     n, m = bv.num_nodes(), bv.num_arcs()
     scan = scan_structure(bv)
@@ -334,8 +376,9 @@ def phase_main(bv, label, card):
     _reset_counts()
     off, succ = wgt.decode_to_csr(bv, device="cuda")
     torch.cuda.synchronize()
-    k1, k2, _ = _counts()
-    check(k1 > 0 and k2 == 0, f"{label}: launches K1 {k1} K2 {k2}")
+    k1, k2, _, _, probes = _counts()
+    check(k1 > 0 and k2 == 0 and probes == 0,
+          f"{label}: launches K1 {k1} K2 {k2} probes {probes}")
     _csr_vs_oracle(bv, off, succ, label)
 
     # timing, planning excluded: warm-up, then median of 5
@@ -345,14 +388,8 @@ def phase_main(bv, label, card):
     kernel_ms = cuda_ms(
         lambda: D2.decode_lanes(prep.words, prep.bo, li, prep.skey), 5)
     slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    pslab, pwp, perr = D2.decode_lanes_plain(prep.words, prep.bo, li,
-                                             prep.skey)
-    b.record()
-    torch.cuda.synchronize()
-    plain_ms = a.elapsed_time(b)
+    (pslab, pwp, perr), plain_ms = _events_ms(
+        lambda: D2.decode_lanes_plain(prep.words, prep.bo, li, prep.skey))
     D2.check_errors(perr)
     err = _slab_err(slab, wp, pslab, pwp)
     # bound of the decode: the stream and bit offsets read once, the CSR
@@ -410,25 +447,73 @@ def _k2_graphs():
 
 
 def _k2_vs_plain(prep):
-    """K2 against its plain version; returns (succ, max |kernel - plain|,
-    plain ms)."""
+    """Both K2 kernels against their plain versions on the same inputs:
+    ``k2_parse`` (alone) against ``parse_records_plain`` in every slot it
+    writes, and the decode against ``resolve_copies_plain`` of that parse.
+    Returns (succ, parse max |err|, resolve max |err|, plain parse ms,
+    plain resolve ms)."""
     import torch
 
     from webgraph_tpu_torch.kernels import decode as K2
 
-    args = (prep.words, prep.bo, prep.order, prep.bounds, prep.offsets,
-            prep.skey)
+    args = prep.args()
     succ = K2.decode_levels(*args)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    psucc, perr = K2.decode_levels_plain(*args)
-    b.record()
-    torch.cuda.synchronize()
-    K2.check_errors(perr, prep.order)
-    err = int((succ.long() - psucc.long()).abs().max()) if succ.numel() else 0
-    check(err == 0, f"K2 differs from plain (max |err| {err})")
-    return succ, err, a.elapsed_time(b)
+    parsed = K2.parse_records(*args)
+    plain, parse_ms = _events_ms(lambda: K2.parse_records_plain(*args[:7]))
+    perr = 0
+    for name, got, want in zip(plain._fields, parsed, plain):
+        check(got.shape == want.shape, f"k2_parse {name}: shape differs")
+        if got.numel():
+            perr = max(perr, int((got.long() - want.long()).abs().max()))
+    check(perr == 0, f"k2_parse differs from plain (max |err| {perr})")
+    (psucc, err), resolve_ms = _events_ms(lambda: K2.resolve_copies_plain(
+        plain, prep.order, prep.bounds, prep.offsets, prep.bstart))
+    K2.check_errors(err, prep.order)
+    rerr = int((succ.long() - psucc.long()).abs().max()) if succ.numel() else 0
+    check(rerr == 0, f"k2_resolve differs from plain (max |err| {rerr})")
+    return succ, perr, rerr, parse_ms, resolve_ms
+
+
+def phase_k2_probe():
+    """k2_compact_probe on the inputs of scripts/pallas_compact_chip.py,
+    exactly against NumPy and its plain version, then timed."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu_torch.kernels import decode as K2
+    from webgraph_tpu_torch.profile_k2 import kernel_ms
+
+    rng = np.random.default_rng(11)
+    cnt = rng.integers(0, 17, 1024).astype(np.int32)
+    pre = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    vals = rng.integers(1, 1 << 20, (128, 1024)).astype(np.int32)
+    pool_size, depth = 160 * 128, 16
+    exp = np.zeros(pool_size, np.int64)
+    for lane in range(1024):
+        exp[pre[lane]:pre[lane] + cnt[lane]] = vals[:cnt[lane], lane]
+    acc = int(cnt.sum())
+    qpos = rng.integers(0, max(acc - 16, 1), 1024).astype(np.int32)
+    exp_q = np.stack([exp[qpos + k] for k in range(depth)])
+    args = [torch.from_numpy(a).cuda() for a in (vals, cnt, qpos)]
+    pool, q = K2.compact_probe(*args, pool_size, depth)
+    check(np.array_equal(pool.cpu().numpy(), exp)
+          and np.array_equal(q.cpu().numpy(), exp_q),
+          "k2_compact_probe differs from NumPy")
+    (ppool, pq), plain_ms = _events_ms(
+        lambda: K2.compact_probe_plain(*args, pool_size, depth))
+    err = max(int((pool - ppool).abs().max()), int((q - pq).abs().max()))
+    check(err == 0, "k2_compact_probe differs from its plain version")
+    ms = kernel_ms(lambda: K2.compact_probe(*args, pool_size, depth), 20,
+                   ("k2_compact_probe",))["k2_compact_probe"]
+    # the counts and fetch positions read, the values moved read and
+    # written once, the fetched slots written
+    nbytes = 2 * 1024 * 4 + 2 * acc * 4 + depth * 1024 * 4
+    bound_ms, bound_by = _bound(nbytes, acc + depth * 1024)
+    print(f"k2_compact_probe: 1,024 lanes, {acc} values, {depth} fetched a "
+          f"lane, exact vs NumPy and plain; kernel {ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_k2_small(tmp):
@@ -443,11 +528,40 @@ def phase_k2_small(tmp):
         if k2_only:
             check(not D2.supports(bv, scan), f"K2 {name}: K1 supports it")
         prep = K2.prepare(bv, "cuda", scan=scan)
-        succ, _, _ = _k2_vs_plain(prep)
+        succ, *_ = _k2_vs_plain(prep)
         _csr_vs_oracle(bv, prep.offsets, succ, f"K2 {name}")
         print(f"K2 small {name}: n {bv.num_nodes()} m {bv.num_arcs()} "
               f"levels {len(prep.bounds) - 1} exact vs plain and oracle")
     print(f"K2 small: {len(graphs)} graphs exact vs plain decoder and oracle")
+
+
+def _k2_bounds(bv, prep, scan):
+    """Bounds (ms, what bounds it) of k2_parse and k2_resolve on this
+    graph: what each must read and write once, and one operation per code
+    read (parse) or arc written (resolve)."""
+    import numpy as np
+
+    n = prep.order.numel()
+    b1 = int(prep.bounds[1]) if len(prep.bounds) > 1 else n
+    d = scan.d.astype(np.int64)
+    ref = scan.ref.astype(np.int64)
+    copied = np.where(ref > 0, scan.copied.astype(np.int64), 0)
+    nblocks = int(scan.block_count.astype(np.int64).sum())
+    extras = int((d - copied).sum())
+    deep = prep.order[b1:].long().cpu().numpy()
+    idx = 8 * (n + 1)  # one int64 index array (bo, offsets, bstart)
+    # parse: the stream, bo, offsets, bstart, order, porder in; the
+    # extras, block ends, rank, reference, extras count and error out
+    parse = (prep.words.numel() * 8 + 3 * idx + 2 * 4 * n
+             + 4 * (extras + nblocks) + 4 * 4 * n)
+    # resolve: offsets, bstart, the deep nodes' order slots, reference,
+    # extras count, error, rank of their parents, their extras and block
+    # ends, the copied arcs of their parents in; their lists and flags out
+    resolve = (2 * idx + 6 * 4 * len(deep)
+               + 4 * int((d[deep] - copied[deep]).sum()) + 4 * nblocks
+               + 4 * int(copied[deep].sum()) + 4 * int(d[deep].sum()))
+    return (_bound(parse, _codes(bv, scan) + extras),
+            _bound(resolve, int(d[deep].sum())))
 
 
 def phase_k2_main(bv, label, card):
@@ -461,7 +575,7 @@ def phase_k2_main(bv, label, card):
     from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels.plan import scan_structure
-    from webgraph_tpu_torch.profile_levels import cuda_ms
+    from webgraph_tpu_torch.profile_k2 import cuda_ms, kernel_ms
 
     n, m = bv.num_nodes(), bv.num_arcs()
     t0 = time.perf_counter()
@@ -481,37 +595,41 @@ def phase_k2_main(bv, label, card):
     _reset_counts()
     off, succ = wgt.decode_to_csr(bv, device="cuda")
     torch.cuda.synchronize()
-    k1, k2, _ = _counts()
-    check(k1 == 0 and k2 == levels,
-          f"{label}: launches K1 {k1} K2 {k2}, levels {levels}")
+    k1, k2, kp, kr, probes = _counts()
+    check(k1 == 0 and k2 == 2 and kp == 1 and kr == 1 and probes == 0,
+          f"{label}: launches K1 {k1} K2 {k2} (k2_parse {kp}, k2_resolve "
+          f"{kr}) probes {probes}; levels {levels}")
     _csr_vs_oracle(bv, off, succ, label)
 
-    # timing, planning excluded: warm-up, then median of 5
+    # timing, planning excluded: warm-up, then median of 5; each kernel's
+    # device time from 5 traced decodes
     F.decode_prepared(prep)
     decode_ms = cuda_ms(lambda: F.decode_prepared(prep), 5)
-    args = (prep.words, prep.bo, prep.order, prep.bounds, prep.offsets,
-            prep.skey)
-    kernel_ms = cuda_ms(lambda: K2.decode_levels(*args), 5)
-    ksucc, err, plain_ms = _k2_vs_plain(prep)
+    kms = kernel_ms(lambda: K2.decode_levels(*prep.args()), 5,
+                    ("k2_parse", "k2_resolve"))
+    ksucc, perr, rerr, parse_plain, resolve_plain = _k2_vs_plain(prep)
     check(torch.equal(ksucc, succ), f"{label}: K2 runs differ")
-    # bound of the decode: the stream and bit offsets read once, the CSR
-    # offsets and successors written once
-    nbytes = (prep.words.numel() * 8 + prep.bo.numel() * 8
-              + prep.offsets.numel() * 8 + m * 4)
-    bound_ms, bound_by = _bound(nbytes, _codes(bv, scan) + m)
+    (pb, pby), (rb, rby) = _k2_bounds(bv, prep, scan)
     print(f"{label}: n {n} m {m} reach {reach} max depth {int(depth.max())} "
           f"levels {levels} (nodes per level: median "
           f"{float(np.median(sizes)):.0f}, max {int(sizes.max())}; "
           f"{int((depth < 100).sum())} nodes at depth < 100); scan "
           f"{scan_s:.2f} s, plan {plan_s:.2f} s")
-    print(f"{label}: launches K1 {k1} K2 {k2}; decode {decode_ms:.4f} ms = "
-          f"{m / decode_ms / 1e3:.2f} Medges/s; K2 kernel {kernel_ms:.4f} ms "
-          f"({kernel_ms / levels * 1e3:.2f} us a level), bound "
-          f"{bound_ms:.4f} ms ({nbytes} bytes); plain decoder "
-          f"{plain_ms:.1f} ms; card {card}")
-    return {"launches": k2, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "decode_ms": decode_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"{label}: launches K1 {k1} K2 {k2} (k2_parse {kp}, k2_resolve "
+          f"{kr}); decode {decode_ms:.4f} ms = {m / decode_ms / 1e3:.2f} "
+          f"Medges/s; k2_parse {kms['k2_parse']:.4f} ms (bound {pb:.4f} ms, "
+          f"{pby}), k2_resolve {kms['k2_resolve']:.4f} ms (bound {rb:.4f} "
+          f"ms, {rby}; {kms['k2_resolve'] / max(levels - 1, 1) * 1e3:.3f} "
+          f"us a link of the {levels - 1}-link chain); plain "
+          f"{parse_plain:.1f} + {resolve_plain:.1f} ms; card {card}")
+    return {
+        "k2_parse": {"launches": kp, "max_abs_err": perr,
+                     "ms": kms["k2_parse"], "plain_ms": parse_plain,
+                     "bound_ms": pb, "bound_by": pby},
+        "k2_resolve": {"launches": kr, "max_abs_err": rerr,
+                       "ms": kms["k2_resolve"], "plain_ms": resolve_plain,
+                       "bound_ms": rb, "bound_by": rby},
+    }
 
 
 def main():
@@ -525,8 +643,9 @@ def main():
     from webgraph_tpu_torch.formats.bvgraph import BVGraph
 
     card = phase_device()
-    phase_build()
+    regs = phase_build()
     k0 = phase_k0()
+    probe = phase_k2_probe()
     with tempfile.TemporaryDirectory() as tmp:
         phase_k1_small(tmp)
         t0 = time.perf_counter()
@@ -547,31 +666,35 @@ def main():
                     if m.split(".")[0] in ("jax", "jaxlib", "webgraph_tpu"))
     check(not leaked, f"the port imported JAX or webgraph_tpu: {leaked[:5]}")
 
+    def row(name, source, replaces, r, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": r["launches"], **extra,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "registers": regs[name.replace("k0_pcodes", "k0_probe")]}
+
+    # K0 is device code inlined into K1 and k2_parse, and the compaction
+    # helper is inlined into k2_resolve: each runs in every launch of
+    # theirs, and is timed on its own through its probe kernel
+    k2p, k2r = k2["k2_parse"], k2["k2_resolve"]
     kernels = [
-        {"name": "k1_decode2", "route": "cuda",
-         "source": "webgraph_tpu_torch/csrc/decode2.cu",
-         "replaces": "webgraph_tpu/pallas/decode2.py:617",
-         "launches": k1["launches"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None},
-        # K0 is device code inlined into K1 and K2: it runs in every launch
-        # of theirs, and is timed on its own through its probe kernel
-        {"name": "k0_pcodes", "route": "cuda",
-         "source": "webgraph_tpu_torch/csrc/pcodes.cuh",
-         "replaces": "webgraph_tpu/pallas/pcodes.py:107",
-         "launches": k1["launches"] + k2["launches"],
-         "inlined_in": ["k1_decode2", "k2_decode"],
-         "max_abs_err": k0["max_abs_err"], "ms": k0["ms"],
-         "plain_ms": k0["plain_ms"], "bound_ms": k0["bound_ms"],
-         "bound_by": k0["bound_by"], "library_ms": None},
-        {"name": "k2_decode", "route": "cuda",
-         "source": "webgraph_tpu_torch/csrc/decode.cu",
-         "replaces": "webgraph_tpu/pallas/decode.py:423",
-         "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None},
+        row("k1_decode2", "webgraph_tpu_torch/csrc/decode2.cu",
+            "webgraph_tpu/pallas/decode2.py:617", k1),
+        row("k0_pcodes", "webgraph_tpu_torch/csrc/pcodes.cuh",
+            "webgraph_tpu/pallas/pcodes.py:107",
+            {**k0, "launches": k1["launches"] + k2p["launches"]},
+            inlined_in=["k1_decode2", "k2_parse"]),
+        row("k2_parse", "webgraph_tpu_torch/csrc/decode.cu",
+            "webgraph_tpu/pallas/decode.py:423", k2p,
+            phases="_p1b_blocks :669, _p2_extras :799"),
+        row("k2_resolve", "webgraph_tpu_torch/csrc/decode.cu",
+            "webgraph_tpu/pallas/decode.py:423", k2r,
+            phases="_p3_round :938"),
+        row("k2_compact_probe", "webgraph_tpu_torch/csrc/decode.cu",
+            "scripts/pallas_compact_chip.py:60",
+            {**probe, "launches": k2r["launches"]},
+            inlined_in=["k2_resolve"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,7 @@
-"""K2: the port's chain-depth level decoder (webgraph_tpu_torch/kernels/
-decode.py) and the routed bulk decode, against the host oracle, exactly:
-on the CPU through the plain PyTorch decoder, on the card through the K2
-kernel, which must also equal the plain decoder.  The graph set is that of
+"""K2: the port's long-chain decoder (webgraph_tpu_torch/kernels/decode.py)
+and the routed bulk decode, against the host oracle, exactly: on the CPU
+through the plain PyTorch decoder, on the card through the two K2 kernels,
+which must also equal the plain versions of both.  The graph set is that of
 tests/test_pallas_decode.py plus config 3's deep-chain graph stored with
 unbounded maxref.  The routing is held to the JAX package's
 ``decode_to_csr_auto`` by tests/test_torch_route.py."""
@@ -41,6 +41,20 @@ def _deep_chains():
     return CSRGraph.from_lists(lists + [[]] * 200)
 
 
+def _many_blocks():
+    """300 lists of 1,100 arcs, each its predecessor with 20 arcs dropped
+    and 20 added: a 300-deep chain (past K1's reach) of records with up
+    to 40 copy blocks and lists past a warp's shared staging."""
+    rng = np.random.default_rng(5)
+    cur = set(rng.choice(5000, 1100, replace=False).tolist())
+    lists = []
+    for _ in range(300):
+        lists.append(sorted(cur))
+        cur -= set(rng.choice(sorted(cur), 20, replace=False).tolist())
+        cur |= set(rng.choice(5000, 20, replace=False).tolist())
+    return CSRGraph.from_lists(lists + [[]] * 700)
+
+
 def _er(n, p, seed):
     return lambda: MutableGraph.erdos_renyi(n, p, seed=seed)
 
@@ -58,6 +72,8 @@ GRAPHS = {
                                        min_interval_length=2), False),
     "empty_and_single": (lambda: CSRGraph.from_lists([[], [0], [], [1, 2], []]),
                          {}, False),
+    "many_blocks": (_many_blocks, dict(window_size=7, max_ref_count=MAXREF_INF,
+                                       min_interval_length=2), False),
     "deep_chain6000_i0": (lambda: deep_chain_graph(6000), dict(
         window_size=7, max_ref_count=MAXREF_INF, min_interval_length=0), True),
     "deep_chain6000_i2": (lambda: deep_chain_graph(6000), dict(
@@ -91,8 +107,7 @@ def test_plain_levels_match_oracle(name, tmp_path):
     g, bv = _stored(name, tmp_path)
     prep = K2.prepare(bv, "cpu")
     assert isinstance(prep, K2.LevelPrepared)
-    succ, err = K2.decode_levels_plain(prep.words, prep.bo, prep.order,
-                                       prep.bounds, prep.offsets, prep.skey)
+    succ, err = K2.decode_levels_plain(*prep.args()[:7])
     assert succ.dtype == torch.int32 and not err.any()
     _assert_csr(g, prep.offsets, succ)
     if GRAPHS[name][2]:
@@ -133,28 +148,50 @@ def test_plan_levels_orders_by_depth(tmp_path):
     np.testing.assert_array_equal(np.diff(plan.offsets.numpy()), scan.d)
 
 
-@pytest.mark.parametrize("fault,message", [
-    ("stream", "invalid code"),
-    ("offsets", "record counts disagree"),
-    ("window", "reference beyond the window"),
-])
-def test_node_errors_raise(fault, message, tmp_path):
-    """A node whose stream holds no valid code, whose outdegree disagrees
-    with its CSR slot or whose reference reaches past the window fails
-    loudly instead of returning garbage."""
-    _, bv = _stored("deep_chain6000_i2", tmp_path)
-    prep = K2.prepare(bv, "cpu")
-    words, offsets, skey = prep.words, prep.offsets, prep.skey
+def _set_record_bits(words, bo, x):
+    """The stream with every bit of node x's record set: its outdegree
+    reads 0."""
+    w = words.cpu().numpy().view(np.uint64).copy()
+    for p in range(int(bo[x]), int(bo[x + 1])):
+        w[p >> 6] |= np.uint64(1) << np.uint64(63 - (p & 63))
+    return torch.from_numpy(w.view(np.int64)).to(words.device)
+
+
+def _faulty(fault, prep):
+    """The arguments of ``decode_levels`` with one fault, and the node that
+    must come first in the error (None: any)."""
+    words, bo, order, bounds, offsets, skey, bstart, porder = prep.args()
+    first = None
     if fault == "stream":
         words = torch.zeros_like(words)
     elif fault == "offsets":
         offsets = offsets.clone()
         offsets[1] += 1  # node 0 one arc longer, node 1 one shorter
-    else:
+    elif fault == "window":
         skey = skey[:6] + (1,) + skey[7:]
-    with pytest.raises(RuntimeError, match=message):
-        K2.decode_levels(words, prep.bo, prep.order, prep.bounds, offsets,
-                         skey)
+    else:  # one record of depth 3, whose descendants then fail too
+        first = int(order[int(bounds[3])])
+        words = _set_record_bits(words, bo.cpu(), first)
+    return (words, bo, order, bounds, offsets, skey, bstart, porder), first
+
+
+FAULTS = [("stream", "invalid code"), ("offsets", "record counts disagree"),
+          ("window", "reference beyond the window"),
+          ("record", "record counts disagree, parent failed")]
+
+
+@pytest.mark.parametrize("fault,message", FAULTS)
+def test_node_errors_raise(fault, message, tmp_path):
+    """A node whose stream holds no valid code, whose outdegree disagrees
+    with its CSR slot or whose reference reaches past the window fails
+    loudly instead of returning garbage; so do the descendants of a
+    corrupted record, named after it."""
+    _, bv = _stored("deep_chain6000_i2", tmp_path)
+    args, first = _faulty(fault, K2.prepare(bv, "cpu"))
+    with pytest.raises(RuntimeError, match=message) as e:
+        K2.decode_levels(*args)
+    if first is not None:
+        assert f"nodes [{first}," in str(e.value)
 
 
 def test_to_csr_routes_through_the_device_path(tmp_path):
@@ -171,18 +208,36 @@ def test_kernel_matches_plain_and_oracle_on_card(name, tmp_path, cuda):
     g, bv = _stored(name, tmp_path)
     prep = K2.prepare(bv, cuda)
     before = K2.decode_levels.launches
-    succ = K2.decode_levels(prep.words, prep.bo, prep.order, prep.bounds,
-                            prep.offsets, prep.skey)
+    succ = K2.decode_levels(*prep.args())
     torch.cuda.synchronize()
-    assert K2.decode_levels.launches == before + prep.bounds.size - 1
-    psucc, perr = K2.decode_levels_plain(prep.words, prep.bo, prep.order,
-                                         prep.bounds, prep.offsets, prep.skey)
+    # k2_parse, and k2_resolve when a node has a parent
+    assert K2.decode_levels.launches == before + min(prep.bounds.size - 1, 2)
+    parsed = K2.parse_records(*prep.args())
+    plain = K2.parse_records_plain(*prep.args()[:7])
+    for got, want in zip(parsed, plain):
+        assert torch.equal(got, want)
+    psucc, perr = K2.decode_levels_plain(*prep.args()[:7])
     assert not perr.any()
     assert torch.equal(succ, psucc)
     _assert_csr(g, prep.offsets, succ)
     off, succ = wgt.decode_to_csr(bv)
     assert succ.device.type == "cuda"
     _assert_csr(g, off, succ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault,message", FAULTS)
+def test_node_errors_raise_on_card(fault, message, tmp_path, cuda):
+    """The same faults on the card raise the same error as on the CPU,
+    without hanging on the failed nodes' children."""
+    _, bv = _stored("deep_chain6000_i2", tmp_path)
+    args, _ = _faulty(fault, K2.prepare(bv, "cpu"))
+    with pytest.raises(RuntimeError, match=message) as on_cpu:
+        K2.decode_levels(*args)
+    on_card = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(RuntimeError, match=message) as e:
+        K2.decode_levels(*on_card)
+    assert str(e.value) == str(on_cpu.value)
 
 
 @pytest.mark.gpu

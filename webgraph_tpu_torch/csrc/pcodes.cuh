@@ -5,7 +5,8 @@
 // read_zeta_u, read_minimal_binary, nat2int_u, make_window_reader).  The TPU
 // version holds a 64-bit MSB-first window as two uint32 vector registers;
 // here it is one uint64_t register, rebuilt per code from two big-endian
-// stream words at an int64 bit cursor.
+// stream words at an int64 bit cursor (Reader, K1), or shifted out of two
+// words held in registers (BufReader, K2's parse).
 //
 // Every reader returns the decoded value and writes the code length.  A
 // length above 64 marks a code that does not fit one window or whose value
@@ -145,6 +146,51 @@ struct Reader {
     const uint32_t v = read_code(window64(w, pos), coding, k, len);
     if (len > 64 || pos + len > nbits) { err = ERR_CODE; return 0; }
     pos += len;
+    return static_cast<int64_t>(v);
+  }
+};
+
+// Reads codes in stream order from a buffer in registers: the two stream
+// words under the cursor, refilled one word at a time as the cursor crosses
+// a word boundary.  A code costs a few shifts and at most one global load,
+// where Reader rebuilds its window from two loads per code.  Copying the
+// struct saves the cursor.  Same codes, lengths and errors as Reader.
+struct BufReader {
+  const uint64_t* w;
+  int64_t nbits;
+  int64_t i;      // index of word a
+  uint64_t a, b;  // words i and i + 1
+  int s;          // bits of a already consumed, 0..63
+  int err;
+
+  __device__ __forceinline__ void init(const uint64_t* words, int64_t n, int64_t pos) {
+    w = words;
+    nbits = n;
+    err = 0;
+    i = 0;
+    s = 0;
+    a = b = 0;
+    if (pos < 0 || pos > n) { err = ERR_CODE; return; }
+    i = pos >> 6;
+    s = static_cast<int>(pos & 63);
+    a = w[i];
+    b = w[i + 1];
+  }
+
+  __device__ __forceinline__ int64_t read(int coding, int k) {
+    if (err) return 0;
+    const int64_t pos = (i << 6) + s;
+    if (pos >= nbits) { err = ERR_CODE; return 0; }
+    int len;
+    const uint32_t v = read_code(s ? (a << s) | (b >> (64 - s)) : a, coding, k, len);
+    if (len > 64 || pos + len > nbits) { err = ERR_CODE; return 0; }
+    s += len;
+    if (s >= 64) {
+      s -= 64;
+      ++i;
+      a = b;
+      b = w[i + 1];
+    }
     return static_cast<int64_t>(v);
   }
 };

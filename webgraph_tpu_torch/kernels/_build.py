@@ -6,7 +6,9 @@ includes PyTorch's headers, so a build takes seconds, and the sources are
 compiled in parallel, one ``nvcc`` each.  The libraries land in
 ``webgraph_tpu_torch/build/`` under names keyed by a hash of the source,
 the shared headers and the flags, so an edited source is rebuilt and an
-unchanged one is reused.
+unchanged one is reused.  ``ptxas -v``'s report (registers, stack and
+spills of each kernel) is kept beside each library; :func:`registers`
+reads it.
 
 Importing this module needs no CUDA toolkit: only :func:`load` does.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 HEADERS = ("pcodes.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,10 +46,14 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     },
     "decode.cu": {
-        # words, nbits, bo, offsets, order, bounds (host), levels,
-        # outd, ref, bcnt, blk, res, zeta_k, window, minint, succ, err, stream
-        "wgt_k2_decode": (_P, _L, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+        # words, nbits, bo, offsets, order, porder, bstart, n, b1,
+        # outd, ref, bcnt, blk, res, zeta_k, window, minint,
+        # ext, bend, rank, ref, nex, flags, ticket, succ, err, resolve, stream
+        "wgt_k2_decode": (_P, _L, _P, _P, _P, _P, _P, _L, _L,
+                          _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+        # vals, cnt, qpos, lanes, depth, pool, q, stream
+        "wgt_k2_compact_probe": (_P, _P, _P, _I, _I, _P, _P, _P),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -97,6 +104,8 @@ def _compile(todo: dict) -> None:
             if proc.returncode != 0:
                 failed.append(f"{src} ({proc.returncode}):\n{err}")
             else:
+                with open(so + ".ptxas", "w") as f:
+                    f.write(err)
                 os.replace(tmp, so)
     finally:
         for *_, proc in procs:
@@ -127,6 +136,25 @@ def load() -> types.SimpleNamespace:
                     fns[name] = fn
             _lib = types.SimpleNamespace(**fns)
         return _lib
+
+
+def registers(source: str, kernels) -> dict:
+    """Registers of each of ``kernels`` (names of ``__global__`` functions
+    of ``source``) as ``ptxas -v`` reported them when the library was
+    built."""
+    regs, name = {}, None
+    with open(library_path(source) + ".ptxas") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                for k in kernels:  # a mangled name holds <length><name>
+                    if f"{len(k)}{k}" in name:
+                        regs[k] = int(m.group(1))
+                name = None
+    return regs
 
 
 def check_launch(name: str, rc: int) -> None:
