@@ -121,7 +121,7 @@ def phase_k0():
 
     from webgraph_tpu_torch.bits import codes as C
     from webgraph_tpu_torch.kernels import pcodes as P
-    from webgraph_tpu_torch.profile_k2 import cuda_ms
+    from webgraph_tpu_torch.timing import cuda_ms
 
     rng = np.random.default_rng(42)
     vals = np.concatenate([
@@ -284,7 +284,6 @@ def _reset_counts():
     from webgraph_tpu_torch.kernels import pcodes as P
 
     D2.decode_lanes.launches = 0
-    K2.decode_levels.launches = 0
     for k in K2.decode_levels.counts:
         K2.decode_levels.counts[k] = 0
     K2.parse_records.launches = 0
@@ -300,7 +299,7 @@ def _counts():
     from webgraph_tpu_torch.kernels import pcodes as P
 
     c = K2.decode_levels.counts
-    return (D2.decode_lanes.launches, K2.decode_levels.launches,
+    return (D2.decode_lanes.launches, sum(c.values()),
             c["k2_parse"], c["k2_resolve"],
             P.probe.launches + K2.compact_probe.launches
             + K2.parse_records.launches)
@@ -354,7 +353,7 @@ def phase_main(bv, label, card):
     from webgraph_tpu_torch.formats import bvgraph as F
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels.plan import scan_structure
-    from webgraph_tpu_torch.profile_k2 import cuda_ms
+    from webgraph_tpu_torch.timing import cuda_ms
 
     n, m = bv.num_nodes(), bv.num_arcs()
     scan = scan_structure(bv)
@@ -459,7 +458,7 @@ def _k2_vs_plain(prep):
     args = prep.args()
     succ = K2.decode_levels(*args)
     parsed = K2.parse_records(*args)
-    plain, parse_ms = _events_ms(lambda: K2.parse_records_plain(*args[:7]))
+    plain, parse_ms = _events_ms(lambda: K2.parse_records_plain(*args))
     perr = 0
     for name, got, want in zip(plain._fields, parsed, plain):
         check(got.shape == want.shape, f"k2_parse {name}: shape differs")
@@ -481,7 +480,7 @@ def phase_k2_probe():
     import torch
 
     from webgraph_tpu_torch.kernels import decode as K2
-    from webgraph_tpu_torch.profile_k2 import kernel_ms
+    from webgraph_tpu_torch.timing import kernel_ms
 
     rng = np.random.default_rng(11)
     cnt = rng.integers(0, 17, 1024).astype(np.int32)
@@ -550,9 +549,9 @@ def _k2_bounds(bv, prep, scan):
     extras = int((d - copied).sum())
     deep = prep.order[b1:].long().cpu().numpy()
     idx = 8 * (n + 1)  # one int64 index array (bo, offsets, bstart)
-    # parse: the stream, bo, offsets, bstart, order, porder in; the
-    # extras, block ends, rank, reference, extras count and error out
-    parse = (prep.words.numel() * 8 + 3 * idx + 2 * 4 * n
+    # parse: the stream, bo, offsets, bstart, order in; the extras, block
+    # ends, rank, reference, extras count and error out
+    parse = (prep.words.numel() * 8 + 3 * idx + 4 * n
              + 4 * (extras + nblocks) + 4 * 4 * n)
     # resolve: offsets, bstart, the deep nodes' order slots, reference,
     # extras count, error, rank of their parents, their extras and block
@@ -575,7 +574,7 @@ def phase_k2_main(bv, label, card):
     from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels.plan import scan_structure
-    from webgraph_tpu_torch.profile_k2 import cuda_ms, kernel_ms
+    from webgraph_tpu_torch.timing import cuda_ms, kernel_ms
 
     n, m = bv.num_nodes(), bv.num_arcs()
     t0 = time.perf_counter()

@@ -23,11 +23,10 @@
 //   list, to bend[bstart[x] ..) and its extras (the interval runs merged with
 //   the residuals, ascending) to ext[offsets[x] ..).  A node of depth 0
 //   copies nothing: its extras are its list, written straight to succ, and
-//   its ready flag is set.  Threads take records longest first, one long
-//   record a warp (`porder`): the hubs' serial loops start in the first
-//   wave, and no warp runs two hubs' divergent paths one after the other.
-//   Bound: the longest record's chain of dependent code reads and merge
-//   steps (a hub of thousands of arcs), not bytes.
+//   its ready flag is set.  Thread i takes the record of order[i]; handing
+//   the hubs out first, or one a warp, gained nothing measured on the K2
+//   cells.  Bound: the longest record's chain of dependent code reads and
+//   merge steps (a hub of thousands of arcs), not bytes.
 //
 // k2_resolve: the copy chains, in one persistent launch, a warp a node.
 //   Warps take the nodes of depth >= 1 in depth order (`order[b1:]`) from a
@@ -41,7 +40,9 @@
 //   and extra values by rank into succ[offsets[x] ..): a value goes to its
 //   index in its own run plus the count of the other run's values below it,
 //   one binary search each (kernels/decode.py::merge_copies_plain is this
-//   arithmetic in plain torch).  Then a release fence and the node's flag.
+//   arithmetic in plain torch).  The runs must share no value, or two land
+//   in one slot and another slot stays unwritten: an extra that equals a
+//   kept value fails the node.  Then a release fence and the node's flag.
 //   Bound: the longest chain, one link at a time: the flag's trip through
 //   L2, the parent's slots from L2, the merge, the release.
 //
@@ -217,19 +218,18 @@ __device__ int parse_record(wgt::BufReader& rd, const wgt::Codings& c, int64_t x
   return 0;
 }
 
-// Every record: thread i parses the node at order position porder[i].
-// `succ` may be `ext` (the parse alone, as parse_records_plain lays it out).
+// Every record: thread j parses the node at order position j.  `succ` may
+// be `ext` (the parse alone, as parse_records_plain lays it out).
 __global__ void __launch_bounds__(PARSE_THREADS)
 k2_parse(const uint64_t* __restrict__ words, int64_t nbits,
          const int64_t* __restrict__ bo, const int64_t* __restrict__ off,
-         const int32_t* __restrict__ order, const int32_t* __restrict__ porder,
-         const int64_t* __restrict__ bstart, int64_t n, int64_t b1, wgt::Codings c,
-         int32_t* ext, int32_t* __restrict__ bend, int32_t* __restrict__ rank,
+         const int32_t* __restrict__ order, const int64_t* __restrict__ bstart,
+         int64_t n, int64_t b1, wgt::Codings c, int32_t* ext,
+         int32_t* __restrict__ bend, int32_t* __restrict__ rank,
          int32_t* __restrict__ pref, int32_t* __restrict__ nex,
          int32_t* __restrict__ flags, int32_t* succ, int32_t* __restrict__ err) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t j = porder[i];
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n) return;
   const int64_t x = order[j];
   const bool depth0 = j < b1;
   rank[x] = static_cast<int32_t>(j);
@@ -316,14 +316,22 @@ __device__ int resolve_node(int lane, int32_t* sm, int64_t j, int64_t x,
   if (kept != nk) return wgt::ERR_COUNT;
   __syncwarp();
 
-  // merge by rank: extras stage[0, ne), kept stage[ne, d), disjoint
+  // merge by rank: extras stage[0, ne), kept stage[ne, d); an extra found
+  // among the kept values is a corrupted record
+  bool clash = false;
   for (int64_t k = lane; k < d; k += 32) {
     const int32_t v = stage[k];
-    const int64_t at = k < ne ? k + lower_bound(stage + ne, nk, v)
-                              : k - ne + lower_bound(stage, ne, v);
+    int64_t at;
+    if (k < ne) {
+      const int64_t lb = lower_bound(stage + ne, nk, v);
+      clash |= lb < nk && stage[ne + lb] == v;
+      at = k + lb;
+    } else {
+      at = k - ne + lower_bound(stage, ne, v);
+    }
     succ[base + at] = v;
   }
-  return 0;
+  return __any_sync(FULL, clash) ? wgt::ERR_COUNT : 0;
 }
 
 // The nodes of depth >= 1, order[b1 .. n), a warp each, by ticket.
@@ -397,17 +405,18 @@ k2_compact_probe(const int32_t* __restrict__ vals, const int32_t* __restrict__ c
 // One decode: zeroes the flags and the ticket, launches k2_parse over all n
 // nodes and, when `resolve` is set and a node has depth >= 1, k2_resolve
 // over order[b1 .. n) with as many blocks as stay resident.  With `resolve`
-// 0 and succ == ext it is the parse alone.
+// 0 and succ == ext it is the parse alone.  launched[0] and launched[1]
+// get the launches of k2_parse and k2_resolve.
 extern "C" int wgt_k2_decode(const void* words, int64_t nbits, const void* bo,
-                             const void* off, const void* order, const void* porder,
-                             const void* bstart, int64_t n, int64_t b1, int outd,
-                             int ref, int bcnt, int blk, int res, int zeta_k,
-                             int window, int minint, void* ext, void* bend,
-                             void* rank, void* pref, void* nex, void* flags,
-                             void* ticket, void* succ, void* err, int resolve,
-                             void* stream) {
+                             const void* off, const void* order, const void* bstart,
+                             int64_t n, int64_t b1, int outd, int ref, int bcnt,
+                             int blk, int res, int zeta_k, int window, int minint,
+                             void* ext, void* bend, void* rank, void* pref, void* nex,
+                             void* flags, void* ticket, void* succ, void* err,
+                             int resolve, int* launched, void* stream) {
   const wgt::Codings c{outd, ref, bcnt, blk, res, zeta_k, window, minint};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  launched[0] = launched[1] = 0;
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   cudaMemsetAsync(flags, 0, n * sizeof(int32_t), s);
   cudaMemsetAsync(ticket, 0, sizeof(int32_t), s);
@@ -417,10 +426,12 @@ extern "C" int wgt_k2_decode(const void* words, int64_t nbits, const void* bo,
   k2_parse<<<static_cast<unsigned>((n + PARSE_THREADS - 1) / PARSE_THREADS),
              PARSE_THREADS, 0, s>>>(
       static_cast<const uint64_t*>(words), nbits, i64(bo), i64(off), i32(order),
-      i32(porder), i64(bstart), n, b1, c, o32(ext), o32(bend), o32(rank),
-      o32(pref), o32(nex), o32(flags), o32(succ), o32(err));
+      i64(bstart), n, b1, c, o32(ext), o32(bend), o32(rank), o32(pref), o32(nex),
+      o32(flags), o32(succ), o32(err));
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !resolve || n <= b1) return static_cast<int>(e);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  launched[0] = 1;
+  if (!resolve || n <= b1) return 0;
   int dev = 0, sms = 0, per = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -431,7 +442,9 @@ extern "C" int wgt_k2_decode(const void* words, int64_t nbits, const void* bo,
                RESOLVE_THREADS, 0, s>>>(
       i64(off), i32(order), b1, n, i64(bstart), i32(bend), o32(ext), i32(rank),
       i32(pref), i32(nex), o32(flags), o32(ticket), o32(succ), o32(err));
-  return static_cast<int>(cudaGetLastError());
+  e = cudaGetLastError();
+  if (e == cudaSuccess) launched[1] = 1;
+  return static_cast<int>(e);
 }
 
 // The compaction probe: one block of `lanes` threads (a multiple of 32, at

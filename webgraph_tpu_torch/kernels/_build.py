@@ -46,12 +46,13 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     },
     "decode.cu": {
-        # words, nbits, bo, offsets, order, porder, bstart, n, b1,
+        # words, nbits, bo, offsets, order, bstart, n, b1,
         # outd, ref, bcnt, blk, res, zeta_k, window, minint,
-        # ext, bend, rank, ref, nex, flags, ticket, succ, err, resolve, stream
-        "wgt_k2_decode": (_P, _L, _P, _P, _P, _P, _P, _L, _L,
+        # ext, bend, rank, ref, nex, flags, ticket, succ, err, resolve,
+        # launched (host int[2]), stream
+        "wgt_k2_decode": (_P, _L, _P, _P, _P, _P, _L, _L,
                           _I, _I, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
         # vals, cnt, qpos, lanes, depth, pool, q, stream
         "wgt_k2_compact_probe": (_P, _P, _P, _I, _I, _P, _P, _P),
     },

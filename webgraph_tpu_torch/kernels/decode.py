@@ -28,6 +28,7 @@ the composition of the two plain versions, for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -81,7 +82,6 @@ class LevelPlan:
     bounds: np.ndarray     # int64 (levels + 1,) depth k is order[b[k]:b[k+1]]
     offsets: torch.Tensor  # int64 (n + 1,) CSR offsets, prefix sum of d
     bstart: torch.Tensor   # int64 (n + 1,) prefix sum of the block counts
-    porder: torch.Tensor   # int32 (n,) positions in order, for k2_parse's threads
 
     @property
     def levels(self) -> int:
@@ -102,20 +102,9 @@ def plan_levels(g, scan) -> LevelPlan:
     np.cumsum(scan.d.astype(np.int64), out=offsets[1:])
     bstart = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(scan.block_count.astype(np.int64), out=bstart[1:])
-    # k2_parse's threads take records longest first, one long record a
-    # warp: the k-th longest goes to lane k // w of warp k % w (w warps of
-    # 32), so no warp holds two hubs whose divergent loops it would run one
-    # after the other
-    bits = np.diff(np.asarray(g.bit_offsets, np.int64)[:n + 1])
-    w = -(-n // 32)
-    lanes = np.full(w * 32, -1, np.int64)
-    lanes[:n] = np.argsort(-bits[order], kind="stable")
-    porder = lanes.reshape(32, w).T.reshape(-1)
-    porder = porder[porder >= 0]
     return LevelPlan(order=torch.from_numpy(order.astype(np.int32)),
                      bounds=bounds, offsets=torch.from_numpy(offsets),
-                     bstart=torch.from_numpy(bstart),
-                     porder=torch.from_numpy(porder.astype(np.int32)))
+                     bstart=torch.from_numpy(bstart))
 
 
 @dataclass
@@ -130,12 +119,11 @@ class LevelPrepared:
     offsets: torch.Tensor  # int64 (n + 1,)
     skey: tuple
     bstart: torch.Tensor   # int64 (n + 1,)
-    porder: torch.Tensor   # int32 (n,)
 
     def args(self) -> tuple:
         """The arguments of :func:`decode_levels`."""
         return (self.words, self.bo, self.order, self.bounds, self.offsets,
-                self.skey, self.bstart, self.porder)
+                self.skey, self.bstart)
 
 
 def prepare(g, device="cuda", *, scan=None) -> LevelPrepared:
@@ -156,7 +144,6 @@ def prepare(g, device="cuda", *, scan=None) -> LevelPrepared:
         offsets=plan.offsets.to(device),
         skey=D2.coding_key(g.settings),
         bstart=plan.bstart.to(device),
-        porder=plan.porder.to(device),
     )
 
 
@@ -222,10 +209,12 @@ def _kept(ndp, nbc, bend, bs):
 
 def _merge_by_rank(aseg, aval, bseg, bval):
     """Positions in their segments' sorted unions of two runs of values,
-    each sorted by (segment, value), that share no value inside a segment:
-    a value goes to its index in its own run's segment plus the count of
-    the other run's values below it in that segment.  One binary search a
-    value, as ``k2_resolve`` merges a node's extras and kept copies."""
+    each sorted by (segment, value): a value goes to its index in its own
+    run's segment plus the count of the other run's values below it in that
+    segment.  One binary search a value, as ``k2_resolve`` merges a node's
+    extras and kept copies.  The runs must share no value inside a segment,
+    or two values take one position; the third result marks each value of
+    the first run that the second run holds too."""
     def key(seg, val):
         return seg * (1 << 33) + (val + (1 << 32))
 
@@ -237,22 +226,26 @@ def _merge_by_rank(aseg, aval, bseg, bval):
                 - torch.searchsorted(own, lo)
                 + torch.searchsorted(other, k) - torch.searchsorted(other, lo))
 
-    return pos(aseg, ka, ka, kb), pos(bseg, kb, kb, ka)
+    clash = torch.searchsorted(kb, ka, right=True) != torch.searchsorted(kb, ka)
+    return pos(aseg, ka, ka, kb), pos(bseg, kb, kb, ka), clash
 
 
 def merge_copies_plain(parent, bend, extras):
     """One node's list, as one warp of ``k2_resolve`` builds it: the slots
     of the parent's list ``parent`` that an even number of the block ends
     ``bend`` lie at or before, merged by rank with the node's ``extras``
-    (ascending, disjoint from the copied values).  int64 tensors."""
+    (ascending).  int64 tensors.  Raises ``ValueError`` where an extra is
+    also a copied value, as the kernel fails such a node."""
     dev = parent.device
     one = torch.ones(1, dtype=torch.int64, device=dev)
     _, cj, keep = _kept(one * parent.numel(), one * bend.numel(),
                         bend.long(), one * 0)
     kval = parent.long()[cj[keep]]
     ev = extras.long()
-    epos, kpos = _merge_by_rank(torch.zeros_like(ev), ev,
-                                torch.zeros_like(kval), kval)
+    epos, kpos, clash = _merge_by_rank(torch.zeros_like(ev), ev,
+                                       torch.zeros_like(kval), kval)
+    if bool(clash.any()):
+        raise ValueError("merge_copies_plain: an extra is also a copied value")
     out = torch.empty(ev.numel() + kval.numel(), dtype=torch.int64,
                       device=dev)
     out[epos] = ev
@@ -406,10 +399,11 @@ def resolve_copies_plain(parsed: Parsed, order, bounds, offsets, bstart):
     """Plain version of ``k2_resolve``, one chain-depth level at a time (the
     kernel's tickets in the same order).  Returns ``(succ, err)``, ``err``
     indexed like ``order``: the parse's, then a node whose parent comes no
-    earlier in ``order`` fails with ERR_PLAN and a node whose parent failed
-    with ERR_PARENT.  A depth-0 node's list is its extras; a deeper node
-    keeps its parent's slots by the toggle rule (:func:`_kept`) and merges
-    them with its extras by rank (:func:`_merge_by_rank`)."""
+    earlier in ``order`` fails with ERR_PLAN, a node whose parent failed
+    with ERR_PARENT, and a node with an extra among its kept values with
+    ERR_COUNT.  A depth-0 node's list is its extras; a deeper node keeps
+    its parent's slots by the toggle rule (:func:`_kept`) and merges them
+    with its extras by rank (:func:`_merge_by_rank`)."""
     ext, bend, ref, err = parsed
     dev = ext.device
     n = order.numel()
@@ -448,9 +442,11 @@ def resolve_copies_plain(parsed: Parsed, order, bounds, offsets, bstart):
         ne = dx[good] - torch.bincount(kseg, minlength=good.numel())
         eseg, ek = _segments(ne)
         evals = ext[base[eseg] + ek].long()
-        epos, kpos = _merge_by_rank(eseg, evals, kseg, kval)
+        epos, kpos, clash = _merge_by_rank(eseg, evals, kseg, kval)
         succ[base[eseg] + epos] = evals.to(torch.int32)
         succ[base[kseg] + kpos] = kval.to(torch.int32)
+        at = torch.arange(lo, hi, **i64)[e == 0]
+        err[at[eseg[clash]]] = ERR_COUNT
     return succ, err.to(torch.int32)
 
 
@@ -468,8 +464,7 @@ def decode_levels_plain(words, bo, order, bounds, offsets, skey, bstart):
 # ----------------------------------------------------------------------
 
 
-def _check_inputs(fn, words, bo, order, bounds, offsets, skey, bstart,
-                  porder):
+def _check_inputs(fn, words, bo, order, bounds, offsets, skey, bstart):
     dev = words.device
     for c in skey[:5]:
         P.make_window_reader(c, skey[5])  # rejects GOLOMB / NIBBLE
@@ -488,36 +483,39 @@ def _check_inputs(fn, words, bo, order, bounds, offsets, skey, bstart,
     need("order", order, torch.int32, (n,))
     need("offsets", offsets, torch.int64, (n + 1,))
     need("bstart", bstart, torch.int64, (n + 1,))
-    need("porder", porder, torch.int32, (n,))
     if bounds.ndim != 1 or bounds[0] != 0 or bounds[-1] != n \
             or (np.diff(bounds) < 0).any():
         raise ValueError(f"{fn}: bounds must rise from 0 to n")
 
 
-def _launch(words, bo, order, bounds, offsets, skey, bstart, porder, ext,
-            bend, succ, resolve):
-    """One call of ``wgt_k2_decode``; returns the error array and the
-    per-node scratch (rank, reference, extras count, ready flag)."""
+def _launch(words, bo, order, bounds, offsets, skey, bstart, ext, bend, succ,
+            resolve):
+    """One call of ``wgt_k2_decode``; returns the error array, the
+    per-node scratch (rank, reference, extras count, ready flag) and the
+    launches of ``k2_parse`` and ``k2_resolve`` as the C entry point
+    reports them."""
     dev = words.device
     n = order.numel()
     node = torch.empty((4, n), dtype=torch.int32, device=dev)
     ticket = torch.empty(1, dtype=torch.int32, device=dev)
     err = torch.empty(n, dtype=torch.int32, device=dev)
     b1 = int(bounds[1]) if len(bounds) > 1 else n
+    launched = (ctypes.c_int * 2)()
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wgt_k2_decode(
             words.data_ptr(), (words.numel() - 2) * 64, bo.data_ptr(),
-            offsets.data_ptr(), order.data_ptr(), porder.data_ptr(),
-            bstart.data_ptr(), n, b1, *skey, ext.data_ptr(), bend.data_ptr(),
+            offsets.data_ptr(), order.data_ptr(), bstart.data_ptr(), n, b1,
+            *skey, ext.data_ptr(), bend.data_ptr(),
             *(node[r].data_ptr() for r in range(4)), ticket.data_ptr(),
-            succ.data_ptr(), err.data_ptr(), int(resolve), stream)
+            succ.data_ptr(), err.data_ptr(), int(resolve),
+            ctypes.addressof(launched), stream)
     _build.check_launch("wgt_k2_decode", rc)
-    return err, node
+    return err, node, tuple(launched)
 
 
-def decode_levels(words, bo, order, bounds, offsets, skey, bstart, porder):
+def decode_levels(words, bo, order, bounds, offsets, skey, bstart):
     """Decode every node into CSR: returns the int32 successors
     ``succ[offsets[x]:offsets[x+1]]`` of every node ``x``.  Raises if a node
     reports an error.
@@ -526,13 +524,13 @@ def decode_levels(words, bo, order, bounds, offsets, skey, bstart, porder):
     int64 bit offsets of the graph's nodes (n + 1); ``order``: int32 node
     ids by depth; ``bounds``: host int64 level bounds into ``order``;
     ``offsets``: int64 CSR offsets (n + 1); ``skey``: ``decode2.coding_key``;
-    ``bstart``: int64 prefix sum of the block counts (n + 1); ``porder``:
-    int32 positions in ``order`` in the order k2_parse's threads take them
-    (all from :func:`plan_levels`).
+    ``bstart``: int64 prefix sum of the block counts (n + 1) (all from
+    :func:`plan_levels`).
 
     CPU tensors take :func:`decode_levels_plain`; CUDA tensors launch
     ``k2_parse`` and, when a node has depth >= 1, ``k2_resolve`` (one C
-    call), and are checked once after the launches."""
+    call), and are checked once after the launches.
+    ``decode_levels.counts`` adds up each kernel's launches."""
     dev = words.device
     bounds = np.ascontiguousarray(bounds, dtype=np.int64)
     if dev.type == "cpu":
@@ -543,29 +541,26 @@ def decode_levels(words, bo, order, bounds, offsets, skey, bstart, porder):
     if dev.type != "cuda":
         raise ValueError(f"decode_levels: unsupported device {dev}")
     _check_inputs("decode_levels", words, bo, order, bounds, offsets, skey,
-                  bstart, porder)
+                  bstart)
     n = order.numel()
     succ = torch.empty(int(offsets[-1]), dtype=torch.int32, device=dev)
     if n == 0:
         return succ
     ext = torch.empty_like(succ)
     bend = torch.empty(int(bstart[-1]), dtype=torch.int32, device=dev)
-    err, _ = _launch(words, bo, order, bounds, offsets, skey, bstart, porder,
-                     ext, bend, succ, True)
-    resolves = int(n > (int(bounds[1]) if len(bounds) > 1 else n))
-    decode_levels.counts["k2_parse"] += 1
+    err, _, (parses, resolves) = _launch(words, bo, order, bounds, offsets,
+                                         skey, bstart, ext, bend, succ, True)
+    decode_levels.counts["k2_parse"] += parses
     decode_levels.counts["k2_resolve"] += resolves
-    decode_levels.launches += 1 + resolves
     check_errors(err, order)
     return succ
 
 
-decode_levels.launches = 0  # both kernels
 decode_levels.counts = {"k2_parse": 0, "k2_resolve": 0}
 
 
-def parse_records(words, bo, order, bounds, offsets, skey, bstart,
-                  porder) -> Parsed:
+def parse_records(words, bo, order, bounds, offsets, skey,
+                  bstart) -> Parsed:
     """``k2_parse`` alone, laid out as :func:`parse_records_plain` gives
     it: every node's extras in ``ext`` (0 elsewhere), depth 0 too.  It does
     not raise on node errors (they are in ``err``).  CPU tensors take
@@ -576,18 +571,18 @@ def parse_records(words, bo, order, bounds, offsets, skey, bstart,
                                    bstart)
     if dev.type != "cuda":
         raise ValueError(f"parse_records: unsupported device {dev}")
-    _check_inputs("parse_records", words, bo, order, bounds, offsets, skey,
-                  bstart, porder)
     bounds = np.ascontiguousarray(bounds, dtype=np.int64)
+    _check_inputs("parse_records", words, bo, order, bounds, offsets, skey,
+                  bstart)
     n = order.numel()
     ext = torch.zeros(int(offsets[-1]), dtype=torch.int32, device=dev)
     bend = torch.zeros(int(bstart[-1]), dtype=torch.int32, device=dev)
     if n == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
         return Parsed(ext, bend, empty, empty)
-    err, node = _launch(words, bo, order, bounds, offsets, skey, bstart,
-                        porder, ext, bend, ext, False)
-    parse_records.launches += 1
+    err, node, (parses, _) = _launch(words, bo, order, bounds, offsets, skey,
+                                     bstart, ext, bend, ext, False)
+    parse_records.launches += parses
     return Parsed(ext, bend, node[1], err)
 
 

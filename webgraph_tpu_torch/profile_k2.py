@@ -2,16 +2,14 @@
 
 For each K2 cell of ``synth.CELLS`` (the web-like graph of cnr-2000's
 size stored with unbounded maxref, and config 3's deep-chain graph at
-minint 2) this times the whole decode (:func:`cuda_ms`, median of 5 after a
-warm-up), then traces 5 more decodes with ``torch.profiler`` and reads the
-device time of each kernel (:func:`kernel_ms`).  It prints one JSON line
-per cell: ``k2_parse`` and ``k2_resolve`` ms (medians), the device's busy
-share from the start of ``k2_parse`` to the end of ``k2_resolve`` (the rest
-is the gap between them), ``k2_resolve``'s time over the links of the
-longest chain (max depth), an upper bound of the time a link takes, the
-longest record's bits and arcs, and ``k2_parse``'s time with its threads
-taking records in three orders: the plan's ``porder`` (longest first, one
-long record a warp), longest first in one sequence, and ``order`` itself.
+minint 2) this times the whole decode (``timing.cuda_ms``, median of 5
+after a warm-up), then traces 5 more decodes with ``torch.profiler`` and
+reads the device time of each kernel (``timing.kernel_spans``).  It prints
+one JSON line per cell: ``k2_parse`` and ``k2_resolve`` ms (medians), the
+device's busy share from the start of ``k2_parse`` to the end of
+``k2_resolve`` (the rest is the gap between them), ``k2_resolve``'s time
+over the links of the longest chain (max depth), an upper bound of the time
+a link takes, and the longest record's bits and arcs.
 
     python3 -m webgraph_tpu_torch.profile_k2
 """
@@ -25,66 +23,7 @@ import subprocess
 import sys
 import tempfile
 
-
-def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def kernel_spans(fn, reps, names):
-    """``reps`` runs of ``fn()`` traced with ``torch.profiler``: for each
-    of ``names`` (kernel names), the (start, end) of its launches in
-    microseconds, in launch order.  The trace may drop a few kernels'
-    records; raises if it shows none of a named kernel, or more than
-    ``reps``."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as t:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-    spans = {}
-    for name in names:
-        got = sorted((e.time_range.start, e.time_range.end) for e in t.events()
-                     if name in e.name)
-        if not 0 < len(got) <= reps:
-            raise RuntimeError(f"the trace shows {len(got)} {name} kernels "
-                               f"for {reps} runs")
-        spans[name] = got
-    return spans
-
-
-def kernel_ms(fn, reps, names):
-    """Median device milliseconds of each kernel of ``names`` over ``reps``
-    traced runs of ``fn()``."""
-    spans = kernel_spans(fn, reps, names)
-    return {k: statistics.median((e - s) / 1e3 for s, e in v)
-            for k, v in spans.items()}
-
-
-def parse_orders(prep):
-    """Alternative thread orders of k2_parse: longest record first in one
-    sequence, and ``order`` itself."""
-    import torch
-
-    bits = (prep.bo[1:] - prep.bo[:-1])[prep.order.long()]
-    seq = torch.argsort(-bits, stable=True).to(torch.int32)
-    ident = torch.arange(prep.order.numel(), dtype=torch.int32,
-                         device=prep.order.device)
-    return {"longest_first": seq, "order": ident}
+from webgraph_tpu_torch.timing import cuda_ms, kernel_spans
 
 
 def profile(bv, label, card):
@@ -109,11 +48,6 @@ def profile(bv, label, card):
     busy = [((p[1] - p[0]) + (r[1] - r[0])) / 1e3 / s
             for (p, r), s in zip(pairs, span)]
     links = len(prep.bounds) - 2
-    by_order = {"porder": statistics.median(parse)}
-    for name, alt in parse_orders(prep).items():
-        alt_args = args[:7] + (alt,)
-        by_order[name] = kernel_ms(lambda: K2.parse_records(*alt_args), 5,
-                                   ("k2_parse",))["k2_parse"]
     bits = (prep.bo[1:] - prep.bo[:-1]).cpu().numpy()
     longest = int(bits.argmax())
     arcs = (prep.offsets[1:] - prep.offsets[:-1]).cpu().numpy()
@@ -130,7 +64,6 @@ def profile(bv, label, card):
         "largest_level": int(np.diff(prep.bounds).max()),
         "longest_record_bits": int(bits[longest]),
         "longest_record_arcs": int(arcs[longest]),
-        "k2_parse_ms_by_thread_order": by_order,
     }
     print(json.dumps(out), flush=True)
     return out
