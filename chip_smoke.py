@@ -9,14 +9,22 @@ through its two routes (K1 for reference chains that reach back at most
 2. build: compiles the CUDA kernels from ``webgraph_tpu_torch/csrc``;
 3. K0: the code-reader probe kernel against the plain PyTorch readers and
    the values written by the scalar encoder, exactly;
-4. K1 small: the decode kernel against the plain PyTorch decoder (slab rows
-   and emission counts) and against ``bvgraph_np.decode_to_csr`` (CSR),
-   exactly, on the graph set of tests/test_pallas_decode2.py;
+4. K1 small: ``k1_parse`` (run alone by ``kernels.decode2.parse_records``)
+   against ``parse_records_plain`` in every slot it writes, the decode
+   (``k1_parse`` then ``k2_resolve``) against ``resolve_copies_plain`` and
+   against ``bvgraph_np.decode_to_csr``,
+   exactly, on the graph set of tests/test_pallas_decode2.py and on
+   ``synth.long_record_graph`` (records of 3,000-6,000 arcs) at the default
+   ``long_arcs`` and at 2 (nearly every record a block);
 5. K1 at size, ``weblike-cnr2000-size``: a seeded web-like graph of
    cnr-2000's size stored with cnr-2000's parameters, decoded through
    ``webgraph_tpu_torch.decode_to_csr(g, device="cuda")`` with the launch
-   counters reset just before and read just after (K1 launched, K2 not),
-   checked against the oracle, then timed (kernel and plain decoder);
+   counters reset just before and read just after (``k1_parse`` and
+   ``k2_resolve`` once each through K1's wrapper, K2's wrapper not), checked
+   against the oracle and both plain versions, then timed (the decode, each
+   kernel's device time from ``torch.profiler``, the plain versions, the
+   decode at other ``long_arcs``, and K2's two kernels on the same graph as
+   a yardstick);
    repeated on cnr-2000 itself where the fixture that ``bench.py`` reads
    exists;
 6. K2's warp compaction: ``k2_compact_probe`` (the helper that
@@ -72,7 +80,7 @@ def phase_device():
     return card
 
 
-KERNELS = {"decode2.cu": ("k1_decode2", "k0_probe"),
+KERNELS = {"decode2.cu": ("k1_parse", "k0_probe"),
            "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe")}
 
 
@@ -195,30 +203,6 @@ def _cell(tmp, label):
     return _store(make(), tmp, label, **kw)
 
 
-def _slab_err(slab, wp, pslab, pwp):
-    """Max |kernel - plain| over the written slots; the counts must agree."""
-    import torch
-
-    check(torch.equal(wp, pwp), "K1 emission counts differ from plain")
-    cols = torch.arange(slab.shape[1], device=slab.device)
-    live = cols[None, :] < wp[:, None].long()
-    err = int(torch.where(live, (slab.long() - pslab.long()).abs(), 0).max())
-    check(err == 0, f"K1 slab differs from plain (max |err| {err})")
-    return err
-
-
-def _kernel_vs_plain(prep):
-    """K1 against its plain version on every tile of a prepared graph."""
-    from webgraph_tpu_torch.kernels import decode2 as D2
-
-    for li in prep.inputs:
-        slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
-        pslab, pwp, perr = D2.decode_lanes_plain(prep.words, prep.bo, li,
-                                                 prep.skey)
-        D2.check_errors(perr)
-        _slab_err(slab, wp, pslab, pwp)
-
-
 def _csr_vs_oracle(bv, off, succ, what):
     import numpy as np
 
@@ -235,7 +219,8 @@ def phase_k1_small(tmp):
     from webgraph_tpu_torch.formats.bvgraph import BVGraphSettings
     from webgraph_tpu_torch.graph.builders import MutableGraph
     from webgraph_tpu_torch.graph.csr import CSRGraph
-    from webgraph_tpu_torch.formats import bvgraph as F
+    from webgraph_tpu_torch.kernels import decode2 as D2
+    from webgraph_tpu_torch.synth import CELLS, long_record_graph
 
     lists = []
     for x in range(120):
@@ -253,6 +238,7 @@ def phase_k1_small(tmp):
     delta.codings["BLOCKS"] = C.DELTA
     delta.codings["RESIDUALS"] = C.GAMMA
     er = MutableGraph.erdos_renyi
+    cnr = CELLS["weblike-cnr2000-size"][1]
     graphs = [
         ("default", er(300, 0.03, seed=0),
          dict(window_size=7, max_ref_count=3, min_interval_length=4), None),
@@ -266,16 +252,21 @@ def phase_k1_small(tmp):
         ("structures", CSRGraph.from_lists(lists),
          dict(window_size=7, max_ref_count=3, min_interval_length=4), None),
         ("delta", er(200, 0.05, seed=9), dict(settings=delta), None),
-        ("tiled", er(3000, m=30000, seed=11), {}, 5000),
+        ("tiled", er(3000, m=30000, seed=11), {}, 2),
+        ("long-records", long_record_graph(), cnr, None),
+        ("long-records-long2", long_record_graph(), cnr, 2),
     ]
-    for name, g, kw, tile_arcs in graphs:
+    for name, g, kw, long_arcs in graphs:
         bv = _store(g, tmp, name, **kw)
-        prep = F.prepare(bv, "cuda", tile_arcs=tile_arcs)
-        check(isinstance(prep, F.Prepared), f"K1 {name}: routed past K1")
-        _kernel_vs_plain(prep)
-        off, succ = F.decode_prepared(prep)
-        _csr_vs_oracle(bv, off, succ, f"K1 {name}")
-    print(f"K1 small: {len(graphs)} graphs exact vs plain decoder and oracle")
+        prep = D2.prepare(bv, "cuda",
+                          long_arcs=long_arcs or D2.LONG_ARCS)
+        succ, *_ = _vs_plain(prep, D2.decode_records, D2.parse_records)
+        _csr_vs_oracle(bv, prep.offsets, succ, f"K1 {name}")
+        print(f"K1 small {name}: n {bv.num_nodes()} m {bv.num_arcs()} "
+              f"levels {len(prep.bounds) - 1} long records "
+              f"{prep.long.numel()} exact vs plain and oracle")
+    print(f"K1 small: {len(graphs)} graphs exact vs plain versions and "
+          f"oracle")
 
 
 def _reset_counts():
@@ -283,26 +274,28 @@ def _reset_counts():
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels import pcodes as P
 
-    D2.decode_lanes.launches = 0
-    for k in K2.decode_levels.counts:
-        K2.decode_levels.counts[k] = 0
+    for c in (D2.decode_records.counts, K2.decode_levels.counts):
+        for k in c:
+            c[k] = 0
+    D2.parse_records.launches = 0
     K2.parse_records.launches = 0
     K2.compact_probe.launches = 0
     P.probe.launches = 0
 
 
 def _counts():
-    """Launches since the last reset: K1, K2 (both kernels), k2_parse,
-    k2_resolve, and the probes and the parse alone (none on a main path)."""
+    """Launches since the last reset: each kernel by name under the route
+    whose wrapper launched it (``k1``: ``decode2.decode_records``, ``k2``:
+    ``decode.decode_levels``), and ``probes``: the probes and the parses
+    alone (none on a main path)."""
     from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels import pcodes as P
 
-    c = K2.decode_levels.counts
-    return (D2.decode_lanes.launches, sum(c.values()),
-            c["k2_parse"], c["k2_resolve"],
-            P.probe.launches + K2.compact_probe.launches
-            + K2.parse_records.launches)
+    return {"k1": dict(D2.decode_records.counts),
+            "k2": dict(K2.decode_levels.counts),
+            "probes": P.probe.launches + K2.compact_probe.launches
+            + K2.parse_records.launches + D2.parse_records.launches}
 
 
 def _codes(bv, scan):
@@ -345,29 +338,40 @@ def _events_ms(fn):
     return out, a.elapsed_time(b)
 
 
-def phase_main(bv, label, card):
+# long_arcs of the sweep at size; one past the largest outdegree gives no
+# record a block
+LONG_SWEEP = (256, 1024, 4096, None)
+
+
+def phase_main(bv, label, card, tmpdir):
     import numpy as np
     import torch
 
     import webgraph_tpu_torch as wgt
     from webgraph_tpu_torch.formats import bvgraph as F
+    from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels.plan import scan_structure
-    from webgraph_tpu_torch.timing import cuda_ms
+    from webgraph_tpu_torch.synth import CELLS, weblike_graph
+    from webgraph_tpu_torch.timing import cuda_ms, kernel_ms, kernel_runs
 
     n, m = bv.num_nodes(), bv.num_arcs()
+    t0 = time.perf_counter()
     scan = scan_structure(bv)
+    scan_s = time.perf_counter() - t0
+    depth = int(scan.depth.max(initial=0))
     copied = float(scan.copied.astype(np.int64).sum()) / m
     res = int(scan.res_count.astype(np.int64).sum())
     iarcs = m - int(scan.copied.astype(np.int64)[scan.ref > 0].sum()) - res
     t0 = time.perf_counter()
     prep = F.prepare(bv, "cuda")
     plan_s = time.perf_counter() - t0
-    check(isinstance(prep, F.Prepared), f"{label}: not routed to K1")
-    max_steps = max(p.max_steps for p in prep.tiles)
+    check(isinstance(prep, D2.Prepared), f"{label}: not routed to K1")
     print(f"{label}: n {n} m {m} copied {copied:.4f} interval "
-          f"{iarcs / m:.4f} max_steps {max_steps} tiles {len(prep.tiles)} "
-          f"slabw {prep.tiles[0].slabw} plan {plan_s:.2f} s")
+          f"{iarcs / m:.4f} max depth {depth} long records "
+          f"{prep.long.numel()} (long_arcs {prep.long_arcs}, largest "
+          f"{int(scan.d.max())} arcs); scan {scan_s:.2f} s, plan "
+          f"(scan + levels + copy to the card) {plan_s:.2f} s")
     check(copied >= 0.2, f"{label}: copied share {copied:.3f} under 0.2")
     check(iarcs > 0, f"{label}: no interval arcs")
 
@@ -375,35 +379,81 @@ def phase_main(bv, label, card):
     _reset_counts()
     off, succ = wgt.decode_to_csr(bv, device="cuda")
     torch.cuda.synchronize()
-    k1, k2, _, _, probes = _counts()
-    check(k1 > 0 and k2 == 0 and probes == 0,
-          f"{label}: launches K1 {k1} K2 {k2} probes {probes}")
+    c = _counts()
+    check(c["k1"] == {"k1_parse": 1, "k2_resolve": int(depth > 0)}
+          and not any(c["k2"].values()) and c["probes"] == 0,
+          f"{label}: launches {c}, max depth {depth}")
     _csr_vs_oracle(bv, off, succ, label)
 
-    # timing, planning excluded: warm-up, then median of 5
+    # timing, planning excluded: warm-up, then median of 5; each kernel's
+    # device time and the device's busy share (from the start of k1_parse
+    # to the end of k2_resolve) from 5 traced decodes
     F.decode_prepared(prep)
     decode_ms = cuda_ms(lambda: F.decode_prepared(prep), 5)
-    li = prep.inputs[0]
-    kernel_ms = cuda_ms(
-        lambda: D2.decode_lanes(prep.words, prep.bo, li, prep.skey), 5)
-    slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
-    (pslab, pwp, perr), plain_ms = _events_ms(
-        lambda: D2.decode_lanes_plain(prep.words, prep.bo, li, prep.skey))
-    D2.check_errors(perr)
-    err = _slab_err(slab, wp, pslab, pwp)
-    # bound of the decode: the stream and bit offsets read once, the CSR
-    # offsets and tile 0's successors written once (one tile at size)
-    nbytes = (prep.words.numel() * 8 + prep.bo.numel() * 8
-              + prep.offsets.numel() * 8 + int(wp.long().sum()) * 4)
-    bound_ms, bound_by = _bound(nbytes, _codes(bv, scan) + m)
-    print(f"{label}: launches K1 {k1} K2 {k2}; decode {decode_ms:.4f} ms = "
-          f"{m / decode_ms / 1e3:.2f} Medges/s; K1 kernel (tile 0) "
-          f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes); "
-          f"plain decoder (tile 0) {plain_ms:.1f} ms = "
-          f"{m / plain_ms / 1e3:.3f} Medges/s; card {card}")
-    return {"launches": k1, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "decode_ms": decode_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    names = ("k1_parse", "k2_resolve") if depth else ("k1_parse",)
+    runs = kernel_runs(lambda: D2.decode_prepared(prep), 5, names)
+    kms = {"k2_resolve": 0.0, **{k: float(np.median(
+        [(r[k][1] - r[k][0]) / 1e3 for r in runs])) for k in names}}
+    busy = float(np.median([
+        sum(e - b for b, e in r.values())
+        / (max(e for _, e in r.values()) - r["k1_parse"][0]) for r in runs]))
+    ksucc, perr, cerr, parse_plain, copy_plain = _vs_plain(
+        prep, D2.decode_records, D2.parse_records)
+    check(torch.equal(ksucc, succ), f"{label}: K1 runs differ")
+    (pb, pby), (cb, cby) = _level_bounds(bv, prep, scan)
+    print(f"{label}: launches k1_parse {c['k1']['k1_parse']} k2_resolve "
+          f"{c['k1']['k2_resolve']}, K2's wrapper 0; decode "
+          f"{decode_ms:.4f} ms = {m / decode_ms / 1e3:.2f} Medges/s; "
+          f"k1_parse {kms['k1_parse']:.4f} ms (bound {pb:.4f} ms, {pby}), "
+          f"k2_resolve {kms['k2_resolve']:.4f} ms (bound {cb:.4f} ms, "
+          f"{cby}); plain {parse_plain:.1f} + {copy_plain:.1f} ms; busy "
+          f"share {busy:.4f} ({len(runs)} whole traced decodes); card {card}")
+
+    # k1_parse on the same generator without its hubs
+    hubless = _store(weblike_graph(hubs=0), tmpdir, "weblike-hubs0",
+                     **CELLS["weblike-cnr2000-size"][1])
+    hp = D2.prepare(hubless, "cuda")
+    parse_hubless = kernel_ms(lambda: D2.decode_prepared(hp), 5,
+                              ("k1_parse",))["k1_parse"]
+    print(f"{label}: nodes per depth {np.diff(prep.bounds).tolist()}; "
+          f"k1_parse without the 12 hubs {parse_hubless:.4f} ms "
+          f"({hp.long.numel()} long records)")
+
+    # the decode with other long-record thresholds, exact
+    sweep = {}
+    for la in LONG_SWEEP:
+        p2 = D2.prepare(bv, "cuda", scan=scan,
+                        long_arcs=la or int(scan.d.max()) + 1)
+        check(torch.equal(D2.decode_prepared(p2)[1], succ),
+              f"{label}: long_arcs {la} differs")
+        sweep[la] = (p2.long.numel(), cuda_ms(lambda: D2.decode_prepared(p2),
+                                              5),
+                     kernel_ms(lambda: D2.decode_prepared(p2), 5,
+                               ("k1_parse",))["k1_parse"])
+    print(f"{label}: long_arcs sweep (long records, decode ms, k1_parse "
+          f"ms): " + "; ".join(f"{la or 'none'}: {v[0]}, {v[1]:.4f}, "
+                               f"{v[2]:.4f}" for la, v in sweep.items()))
+
+    # yardstick: K2's two kernels on the same graph (never on this path)
+    k2p = K2.prepare(bv, "cuda", scan=scan)
+    check(torch.equal(K2.decode_prepared(k2p)[1], succ),
+          f"{label}: K2 differs")
+    k2_ms = cuda_ms(lambda: K2.decode_prepared(k2p), 5)
+    k2k = kernel_ms(lambda: K2.decode_prepared(k2p), 5,
+                    ("k2_parse", "k2_resolve"))
+    print(f"{label}: yardstick K2 decode {k2_ms:.4f} ms (k2_parse "
+          f"{k2k['k2_parse']:.4f} ms, k2_resolve {k2k['k2_resolve']:.4f} "
+          f"ms); card {card}")
+    return {
+        "k1_parse": {"launches": c["k1"]["k1_parse"], "max_abs_err": perr,
+                     "ms": kms["k1_parse"], "plain_ms": parse_plain,
+                     "bound_ms": pb, "bound_by": pby},
+        "k2_resolve": {"launches": c["k1"]["k2_resolve"],
+                       "max_abs_err": cerr, "ms": kms["k2_resolve"],
+                       "plain_ms": copy_plain, "bound_ms": cb,
+                       "bound_by": cby},
+        "decode_ms": decode_ms,
+    }
 
 
 def _k2_graphs():
@@ -445,32 +495,33 @@ def _k2_graphs():
     return graphs
 
 
-def _k2_vs_plain(prep):
-    """Both K2 kernels against their plain versions on the same inputs:
-    ``k2_parse`` (alone) against ``parse_records_plain`` in every slot it
-    writes, and the decode against ``resolve_copies_plain`` of that parse.
-    Returns (succ, parse max |err|, resolve max |err|, plain parse ms,
-    plain resolve ms)."""
-    import torch
+def _vs_plain(prep, decode, parse):
+    """A route's kernels against their plain versions on the same inputs:
+    the parse alone (``parse``: ``k1_parse`` or ``k2_parse``) against
+    ``parse_records_plain`` in every slot it writes, and the decode
+    (``decode``) against ``resolve_copies_plain`` of that parse.  Returns
+    (succ, parse max |err|, copy max |err|, plain parse ms, plain copy
+    ms)."""
+    from webgraph_tpu_torch.kernels import levels as L
 
-    from webgraph_tpu_torch.kernels import decode as K2
-
-    args = prep.args()
-    succ = K2.decode_levels(*args)
-    parsed = K2.parse_records(*args)
-    plain, parse_ms = _events_ms(lambda: K2.parse_records_plain(*args))
+    args, sizes = prep.args(), prep.sizes()
+    succ = decode(*args, **sizes)
+    parsed = parse(*args, **sizes)
+    plain, parse_ms = _events_ms(
+        lambda: L.parse_records_plain(*args[:7], **sizes))
     perr = 0
     for name, got, want in zip(plain._fields, parsed, plain):
-        check(got.shape == want.shape, f"k2_parse {name}: shape differs")
+        check(got.shape == want.shape, f"parse {name}: shape differs")
         if got.numel():
             perr = max(perr, int((got.long() - want.long()).abs().max()))
-    check(perr == 0, f"k2_parse differs from plain (max |err| {perr})")
-    (psucc, err), resolve_ms = _events_ms(lambda: K2.resolve_copies_plain(
-        plain, prep.order, prep.bounds, prep.offsets, prep.bstart))
-    K2.check_errors(err, prep.order)
-    rerr = int((succ.long() - psucc.long()).abs().max()) if succ.numel() else 0
-    check(rerr == 0, f"k2_resolve differs from plain (max |err| {rerr})")
-    return succ, perr, rerr, parse_ms, resolve_ms
+    check(perr == 0, f"parse differs from plain (max |err| {perr})")
+    (psucc, err), copy_ms = _events_ms(lambda: L.resolve_copies_plain(
+        plain, prep.order, prep.bounds, prep.offsets, prep.bstart,
+        m=prep.m))
+    L.check_errors(err, prep.order)
+    cerr = int((succ.long() - psucc.long()).abs().max()) if succ.numel() else 0
+    check(cerr == 0, f"copies differ from plain (max |err| {cerr})")
+    return succ, perr, cerr, parse_ms, copy_ms
 
 
 def phase_k2_probe():
@@ -527,17 +578,17 @@ def phase_k2_small(tmp):
         if k2_only:
             check(not D2.supports(bv, scan), f"K2 {name}: K1 supports it")
         prep = K2.prepare(bv, "cuda", scan=scan)
-        succ, *_ = _k2_vs_plain(prep)
+        succ, *_ = _vs_plain(prep, K2.decode_levels, K2.parse_records)
         _csr_vs_oracle(bv, prep.offsets, succ, f"K2 {name}")
         print(f"K2 small {name}: n {bv.num_nodes()} m {bv.num_arcs()} "
               f"levels {len(prep.bounds) - 1} exact vs plain and oracle")
     print(f"K2 small: {len(graphs)} graphs exact vs plain decoder and oracle")
 
 
-def _k2_bounds(bv, prep, scan):
-    """Bounds (ms, what bounds it) of k2_parse and k2_resolve on this
-    graph: what each must read and write once, and one operation per code
-    read (parse) or arc written (resolve)."""
+def _level_bounds(bv, prep, scan):
+    """Bounds (ms, what bounds it) of a route's parse and copy kernels on
+    this graph: what each must read and write once, and one operation per
+    code read (parse) or arc written (copy)."""
     import numpy as np
 
     n = prep.order.numel()
@@ -549,18 +600,20 @@ def _k2_bounds(bv, prep, scan):
     extras = int((d - copied).sum())
     deep = prep.order[b1:].long().cpu().numpy()
     idx = 8 * (n + 1)  # one int64 index array (bo, offsets, bstart)
-    # parse: the stream, bo, offsets, bstart, order in; the extras, block
-    # ends, rank, reference, extras count and error out
-    parse = (prep.words.numel() * 8 + 3 * idx + 4 * n
+    nlong = prep.long.numel() if hasattr(prep, "long") else 0
+    # parse: the stream, bo, offsets, bstart, order and the long records'
+    # positions in; the extras, block ends, rank, reference, extras count
+    # and error out
+    parse = (prep.words.numel() * 8 + 3 * idx + 4 * n + 4 * nlong
              + 4 * (extras + nblocks) + 4 * 4 * n)
-    # resolve: offsets, bstart, the deep nodes' order slots, reference,
+    # copy: offsets, bstart, the deep nodes' order slots, reference,
     # extras count, error, rank of their parents, their extras and block
-    # ends, the copied arcs of their parents in; their lists and flags out
-    resolve = (2 * idx + 6 * 4 * len(deep)
-               + 4 * int((d[deep] - copied[deep]).sum()) + 4 * nblocks
-               + 4 * int(copied[deep].sum()) + 4 * int(d[deep].sum()))
+    # ends, the copied arcs of their parents in; their lists out
+    copy = (2 * idx + 6 * 4 * len(deep)
+            + 4 * int((d[deep] - copied[deep]).sum()) + 4 * nblocks
+            + 4 * int(copied[deep].sum()) + 4 * int(d[deep].sum()))
     return (_bound(parse, _codes(bv, scan) + extras),
-            _bound(resolve, int(d[deep].sum())))
+            _bound(copy, int(d[deep].sum())))
 
 
 def phase_k2_main(bv, label, card):
@@ -594,27 +647,32 @@ def phase_k2_main(bv, label, card):
     _reset_counts()
     off, succ = wgt.decode_to_csr(bv, device="cuda")
     torch.cuda.synchronize()
-    k1, k2, kp, kr, probes = _counts()
-    check(k1 == 0 and k2 == 2 and kp == 1 and kr == 1 and probes == 0,
-          f"{label}: launches K1 {k1} K2 {k2} (k2_parse {kp}, k2_resolve "
-          f"{kr}) probes {probes}; levels {levels}")
+    c = _counts()
+    k1 = sum(c["k1"].values())
+    kp, kr, probes = c["k2"]["k2_parse"], c["k2"]["k2_resolve"], c["probes"]
+    k2 = kp + kr
+    check(k1 == 0 and kp == 1 and kr == 1 and probes == 0,
+          f"{label}: launches {c}; levels {levels}")
     _csr_vs_oracle(bv, off, succ, label)
 
     # timing, planning excluded: warm-up, then median of 5; each kernel's
     # device time from 5 traced decodes
     F.decode_prepared(prep)
     decode_ms = cuda_ms(lambda: F.decode_prepared(prep), 5)
-    kms = kernel_ms(lambda: K2.decode_levels(*prep.args()), 5,
-                    ("k2_parse", "k2_resolve"))
-    ksucc, perr, rerr, parse_plain, resolve_plain = _k2_vs_plain(prep)
+    kms = kernel_ms(
+        lambda: K2.decode_levels(*prep.args(), **prep.sizes()), 5,
+        ("k2_parse", "k2_resolve"))
+    ksucc, perr, rerr, parse_plain, resolve_plain = _vs_plain(
+        prep, K2.decode_levels, K2.parse_records)
     check(torch.equal(ksucc, succ), f"{label}: K2 runs differ")
-    (pb, pby), (rb, rby) = _k2_bounds(bv, prep, scan)
+    (pb, pby), (rb, rby) = _level_bounds(bv, prep, scan)
     print(f"{label}: n {n} m {m} reach {reach} max depth {int(depth.max())} "
           f"levels {levels} (nodes per level: median "
           f"{float(np.median(sizes)):.0f}, max {int(sizes.max())}; "
           f"{int((depth < 100).sum())} nodes at depth < 100); scan "
           f"{scan_s:.2f} s, plan {plan_s:.2f} s")
-    print(f"{label}: launches K1 {k1} K2 {k2} (k2_parse {kp}, k2_resolve "
+    print(f"{label}: launches K1's wrapper {k1} K2's {k2} (k2_parse {kp}, "
+          f"k2_resolve "
           f"{kr}); decode {decode_ms:.4f} ms = {m / decode_ms / 1e3:.2f} "
           f"Medges/s; k2_parse {kms['k2_parse']:.4f} ms (bound {pb:.4f} ms, "
           f"{pby}), k2_resolve {kms['k2_resolve']:.4f} ms (bound {rb:.4f} "
@@ -651,9 +709,9 @@ def main():
         bv = _cell(tmp, "weblike-cnr2000-size")
         print(f"synthetic graph: {time.perf_counter() - t0:.2f} s to make "
               f"and store")
-        k1 = phase_main(bv, "weblike-cnr2000-size", card)
+        k1 = phase_main(bv, "weblike-cnr2000-size", card, tmp)
         if os.path.exists(CNR2000 + ".graph"):
-            phase_main(BVGraph.load(CNR2000), "cnr-2000", card)
+            phase_main(BVGraph.load(CNR2000), "cnr-2000", card, tmp)
         else:
             print(f"cnr-2000: skipped ({CNR2000}.graph not present)")
         phase_k2_small(tmp)
@@ -673,23 +731,28 @@ def main():
                 "bound_by": r["bound_by"], "library_ms": None,
                 "registers": regs[name.replace("k0_pcodes", "k0_probe")]}
 
-    # K0 is device code inlined into K1 and k2_parse, and the compaction
-    # helper is inlined into k2_resolve: each runs in every launch of
-    # theirs, and is timed on its own through its probe kernel
+    # K0 is device code inlined into k1_parse and k2_parse, and the
+    # compaction helper is inlined into k2_resolve: each runs in every
+    # launch of theirs, and is timed on its own through its probe kernel
+    # k2_resolve also resolves K1's copies: its numbers on the K1 cell
+    # under "k1_route"
     k2p, k2r = k2["k2_parse"], k2["k2_resolve"]
+    k1p = k1["k1_parse"]
     kernels = [
-        row("k1_decode2", "webgraph_tpu_torch/csrc/decode2.cu",
-            "webgraph_tpu/pallas/decode2.py:617", k1),
+        row("k1_parse", "webgraph_tpu_torch/csrc/decode2.cu",
+            "webgraph_tpu/pallas/decode2.py:617", k1p),
         row("k0_pcodes", "webgraph_tpu_torch/csrc/pcodes.cuh",
             "webgraph_tpu/pallas/pcodes.py:107",
-            {**k0, "launches": k1["launches"] + k2p["launches"]},
-            inlined_in=["k1_decode2", "k2_parse"]),
+            {**k0, "launches": k1p["launches"] + k2p["launches"]},
+            inlined_in=["k1_parse", "k2_parse"]),
         row("k2_parse", "webgraph_tpu_torch/csrc/decode.cu",
             "webgraph_tpu/pallas/decode.py:423", k2p,
             phases="_p1b_blocks :669, _p2_extras :799"),
         row("k2_resolve", "webgraph_tpu_torch/csrc/decode.cu",
             "webgraph_tpu/pallas/decode.py:423", k2r,
-            phases="_p3_round :938"),
+            phases="_p3_round :938",
+            k1_route={**k1["k2_resolve"],
+                      "replaces": "webgraph_tpu/pallas/decode2.py:617"}),
         row("k2_compact_probe", "webgraph_tpu_torch/csrc/decode.cu",
             "scripts/pallas_compact_chip.py:60",
             {**probe, "launches": k2r["launches"]},

@@ -1,9 +1,10 @@
 """The port's bulk decode (webgraph_tpu_torch.decode_to_csr) against the host
 oracle bvgraph_np.decode_to_csr, exactly, on the graph set of
-tests/test_pallas_decode2.py: on the CPU through the plain decoder, and on
-the card through the K1 kernel, which must also equal the plain decoder in
-every written slab slot.  Only the port's own modules here: no JAX and
-nothing of the JAX package, so the card tests run without them."""
+tests/test_pallas_decode2.py: on the CPU through the plain versions, and on
+the card through K1's kernels, each of which must also equal its plain
+version (``k1_parse`` in every slot it writes, the decode after
+``k2_resolve``).  Only the port's own modules here: no JAX and nothing of the
+JAX package, so the card tests run without them."""
 
 import os
 
@@ -49,7 +50,7 @@ def _er(n, p=0.0, m=None, seed=0):
     return lambda: MutableGraph.erdos_renyi(n, p, m=m, seed=seed)
 
 
-# name -> (graph factory, store keywords, tile_arcs)
+# name -> (graph factory, store keywords, long_arcs: None for the default)
 GRAPHS = {
     "default": (_er(300, 0.03, seed=0),
                 dict(window_size=7, max_ref_count=3, min_interval_length=4),
@@ -73,7 +74,7 @@ GRAPHS = {
                    dict(window_size=7, max_ref_count=3,
                         min_interval_length=4), None),
     "delta": (_er(200, 0.05, seed=9), dict(settings=_delta()), None),
-    "tiled": (_er(3000, m=30000, seed=11), {}, 5000),
+    "tiled": (_er(3000, m=30000, seed=11), {}, 2),
     "weblike": (lambda: weblike_graph(2000, seed=1, hubs=0),
                 dict(window_size=7, max_ref_count=3, min_interval_length=3,
                      zeta_k=3), None),
@@ -88,10 +89,17 @@ def cuda():
 
 
 def _stored(name, tmp):
-    make, kw, tile_arcs = GRAPHS[name]
+    make, kw, long_arcs = GRAPHS[name]
     base = os.path.join(tmp, name)
     BVGraph.store(make(), base, **kw)
-    return BVGraph.load(base), tile_arcs
+    return BVGraph.load(base), long_arcs
+
+
+def _prepare(bv, device, long_arcs):
+    """K1's plan, through the router at the default ``long_arcs``."""
+    if long_arcs is None:
+        return F.prepare(bv, device)
+    return D2.prepare(bv, device, long_arcs=long_arcs)
 
 
 def _assert_oracle(bv, off, succ):
@@ -102,10 +110,11 @@ def _assert_oracle(bv, off, succ):
 
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_decode_matches_oracle(name, tmp_path):
-    bv, tile_arcs = _stored(name, tmp_path)
-    prep = F.prepare(bv, "cpu", tile_arcs=tile_arcs)
-    if tile_arcs:
-        assert len(prep.tiles) >= 5
+    bv, long_arcs = _stored(name, tmp_path)
+    prep = _prepare(bv, "cpu", long_arcs)
+    assert isinstance(prep, D2.Prepared)
+    if long_arcs:
+        assert prep.long.numel() > 0.9 * bv.num_nodes()
     off, succ = F.decode_prepared(prep)
     assert off.dtype == torch.int64 and succ.dtype == torch.int32
     _assert_oracle(bv, off, succ)
@@ -132,23 +141,51 @@ def test_weblike_graph_exercises_every_record_part(tmp_path):
     assert scan.int_count.sum() > 0 and scan.res_count.sum() > 0
 
 
+def _counts():
+    return dict(D2.decode_records.counts)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_kernel_matches_plain_and_oracle_on_card(name, tmp_path, cuda):
-    bv, tile_arcs = _stored(name, tmp_path)
-    prep = F.prepare(bv, cuda, tile_arcs=tile_arcs)
-    for li in prep.inputs:
-        before = D2.decode_lanes.launches
-        slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
-        assert D2.decode_lanes.launches == before + 1
-        pslab, pwp, perr = D2.decode_lanes_plain(prep.words, prep.bo, li,
-                                                 prep.skey)
-        assert not perr.any()
-        assert torch.equal(wp, pwp)
-        live = torch.arange(li.slabw, device=cuda)[None, :] < wp[:, None]
-        assert torch.equal(torch.where(live, slab, 0),
-                           torch.where(live, pslab, 0))
-    before = D2.decode_lanes.launches
-    off, succ = wgt.decode_to_csr(bv, device=cuda, tile_arcs=tile_arcs)
-    assert D2.decode_lanes.launches == before + len(prep.tiles)
+    bv, long_arcs = _stored(name, tmp_path)
+    prep = _prepare(bv, cuda, long_arcs)
+    assert isinstance(prep, D2.Prepared)
+    args, sizes = prep.args(), prep.sizes()
+    before = D2.parse_records.launches
+    parsed = D2.parse_records(*args, **sizes)
+    assert D2.parse_records.launches == before + 1
+    plain = D2.parse_records_plain(*args[:7], **sizes)
+    for got, want in zip(parsed, plain):
+        assert torch.equal(got, want)
+    before = _counts()
+    succ = D2.decode_records(*args, **sizes)
+    torch.cuda.synchronize()
+    # k1_parse, and k2_resolve when a node has a parent
+    deep = int(len(prep.bounds) > 2)
+    assert _counts() == {"k1_parse": before["k1_parse"] + 1,
+                         "k2_resolve": before["k2_resolve"] + deep}
+    psucc, perr = D2.resolve_copies_plain(plain, prep.order, prep.bounds,
+                                          prep.offsets, prep.bstart)
+    assert not perr.any()
+    assert torch.equal(succ, psucc)
+    off, succ = wgt.decode_to_csr(bv, device=cuda)
     _assert_oracle(bv, off, succ)
+
+
+@pytest.mark.gpu
+def test_any_long_list_decodes_the_same_on_card(tmp_path, cuda):
+    """``long`` decides only which records ``k1_parse`` gives a block each:
+    a list that disagrees with ``long_arcs``, is unsorted, repeats a
+    position or lies past ``order`` decodes the same CSR, since every record
+    the kernel does not find in it gets a thread."""
+    bv, _ = _stored("weblike", tmp_path)
+    prep = D2.prepare(bv, cuda)
+    n = prep.order.numel()
+    want = D2.decode_prepared(prep)[1]
+    rng = np.random.default_rng(3)
+    for long in (np.arange(0, n, 3), rng.permutation(n)[:500],
+                 np.array([5, 5, 7, n, n + 9, -1])):
+        args = prep.args()[:7] + (
+            torch.tensor(long, dtype=torch.int32, device=cuda),)
+        assert torch.equal(D2.decode_records(*args, **prep.sizes()), want)

@@ -24,9 +24,11 @@ from webgraph_tpu_torch.graph.csr import CSRGraph
 from webgraph_tpu_torch.kernels import decode as K2
 from webgraph_tpu_torch.kernels import decode2 as D2
 from webgraph_tpu_torch.kernels.plan import scan_structure
-from webgraph_tpu_torch.synth import deep_chain_graph
+from webgraph_tpu_torch.synth import (deep_chain_graph, long_record_graph,
+                                      weblike_graph)
 
 MAXREF_INF = 2**31 - 1
+CNR = dict(window_size=7, max_ref_count=3, min_interval_length=3, zeta_k=3)
 
 
 def _structures():
@@ -103,6 +105,10 @@ def _k2_launches():
     return sum(K2.decode_levels.counts.values())
 
 
+def _k1_launches():
+    return sum(D2.decode_records.counts.values())
+
+
 def _assert_csr(g, off, succ):
     toff, tsucc = g.to_csr()
     np.testing.assert_array_equal(off.cpu().numpy(), toff)
@@ -125,14 +131,14 @@ def test_plain_levels_match_oracle(name, tmp_path):
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_routed_decode_matches_oracle(name, tmp_path):
     g, bv = _stored(name, tmp_path)
-    launches = (D2.decode_lanes.launches, _k2_launches())
+    launches = (_k1_launches(), _k2_launches())
     off, succ = wgt.decode_to_csr(bv, device="cpu")
     assert off.dtype == torch.int64 and succ.dtype == torch.int32
     _assert_csr(g, off, succ)
     prep = F.prepare(bv, "cpu")
     assert isinstance(prep, K2.LevelPrepared) == (not D2.supports(bv))
     # CPU tensors take the plain versions: no kernel launched
-    assert (D2.decode_lanes.launches, _k2_launches()) == launches
+    assert (_k1_launches(), _k2_launches()) == launches
 
 
 def test_plan_levels_orders_by_depth(tmp_path):
@@ -164,12 +170,15 @@ def _set_record_bits(words, bo, x):
     return torch.from_numpy(w.view(np.int64)).to(words.device)
 
 
-def _clash(bv, words, bo):
-    """A node of depth 3 with residuals, copied arcs and a child, its
-    record rewritten so that its first residual becomes its first copied
-    successor; every other code stays.  Its counts all agree, but an extra
-    now equals a copied value.  Returns the stream, the bit offsets and the
-    node."""
+def _clash(bv, words, bo, depth=3, into="copied"):
+    """A node with residuals and a child, its record rewritten so that its
+    first residual becomes another of its successors; every other code
+    stays.  ``into`` "copied": a node of ``depth`` with copied arcs, the
+    residual becomes its first copied successor, so an extra equals a
+    copied value.  "interval": a node of depth 0 with intervals, the
+    residual becomes its first interval value, so a residual lies inside an
+    interval run.  Its counts all agree.  Returns the stream, the bit
+    offsets and the node."""
     s, k = bv.settings, bv.settings.zeta_k
     n = bv.num_nodes()
     scan = scan_structure(bv)
@@ -178,10 +187,12 @@ def _clash(bv, words, bo):
     kids = np.flatnonzero(ref > 0)
     parent = np.zeros(n, bool)
     parent[kids - ref[kids]] = True
-    x = int(np.flatnonzero((scan.depth == 3) & (scan.res_count > 0)
-                           & (scan.copied > 0) & parent)[0])
+    if into == "copied":
+        pick = (scan.depth == depth) & (scan.copied > 0)
+    else:
+        pick = (scan.depth == 0) & (scan.int_count > 0)
+    x = int(np.flatnonzero(pick & (scan.res_count > 0) & parent)[0])
     p = x - int(ref[x])
-    c = np.intersect1d(succ[off[x]:off[x + 1]], succ[off[p]:off[p + 1]])[0]
 
     w = words.cpu().numpy().view(np.uint64)
     bo = bo.cpu().numpy().copy()
@@ -196,13 +207,20 @@ def _clash(bv, words, bo):
         return vals
 
     read(s.outdegree_coding)
-    read(s.reference_coding)
-    read(s.block_coding, read(s.block_count_coding)[0])
+    if s.window_size > 0:
+        read(s.reference_coding)
+    if ref[x] > 0:
+        read(s.block_coding, read(s.block_count_coding)[0])
     if s.min_interval_length != 0:
         read(C.GAMMA, 2 * read(C.GAMMA)[0])
     start = int(pos[0])
     gaps = read(s.residual_coding, int(scan.res_count[x]))
     res = np.cumsum([x + C.nat2int(gaps[0])] + [g + 1 for g in gaps[1:]])
+    mine = succ[off[x]:off[x + 1]]
+    if into == "copied":
+        c = np.intersect1d(mine, succ[off[p]:off[p + 1]])[0]
+    else:  # depth 0: its list is its interval values and its residuals
+        c = np.setdiff1d(mine, res)[0]
     res = sorted(res[1:].tolist() + [int(c)])
     obs = OutputBitStream()
     for i, r in enumerate(res):
@@ -218,10 +236,21 @@ def _clash(bv, words, bo):
     return torch.from_numpy(w), torch.from_numpy(bo), x
 
 
-def _faulty(fault, prep, bv):
-    """The arguments of ``decode_levels`` with one fault, and the node that
-    must come first in the error (None: any)."""
-    words, bo, order, bounds, offsets, skey, bstart = prep.args()
+def _zero_from_middle(words, bo, x):
+    """The stream with the second half of node x's record zeroed."""
+    w = words.cpu().numpy().view(np.uint64).copy()
+    lo, hi = int(bo[x]), int(bo[x + 1])
+    for p in range((lo + hi) // 2, hi):
+        w[p >> 6] &= ~(np.uint64(1) << np.uint64(63 - (p & 63)))
+    return torch.from_numpy(w.view(np.int64)).to(words.device)
+
+
+def _faulty(fault, prep, bv, depth=3):
+    """The arguments of the route's decode wrapper (``decode_levels`` or
+    ``decode_records``) with one fault, and the node that must come first
+    in the error (None: any).  "record" corrupts a record of ``depth`` and
+    "clash" rewrites one, each a node with a child."""
+    words, bo, order, bounds, offsets, skey, bstart, *rest = prep.args()
     first = None
     if fault == "stream":
         words = torch.zeros_like(words)
@@ -230,12 +259,15 @@ def _faulty(fault, prep, bv):
         offsets[1] += 1  # node 0 one arc longer, node 1 one shorter
     elif fault == "window":
         skey = skey[:6] + (1,) + skey[7:]
-    elif fault == "clash":  # its descendants then fail too
-        words, bo, first = _clash(bv, words, bo)
-    else:  # one record of depth 3, whose descendants then fail too
-        first = int(order[int(bounds[3])])
+    elif fault in ("clash", "interval"):  # its descendants then fail too
+        words, bo, first = _clash(bv, words, bo, depth,
+                                  "copied" if fault == "clash" else fault)
+    elif fault == "long":  # node 10 of long_record_graph, which 11 copies
+        words = _zero_from_middle(words, bo.cpu(), 10)
+    else:  # one record of ``depth``, whose descendants then fail too
+        first = int(order[int(bounds[depth])])
         words = _set_record_bits(words, bo.cpu(), first)
-    return (words, bo, order, bounds, offsets, skey, bstart), first
+    return (words, bo, order, bounds, offsets, skey, bstart, *rest), first
 
 
 FAULTS = [("stream", "invalid code"), ("offsets", "record counts disagree"),
@@ -254,6 +286,54 @@ def test_node_errors_raise(fault, message, tmp_path):
     args, first = _faulty(fault, K2.prepare(bv, "cpu"), bv)
     with pytest.raises(RuntimeError, match=message) as e:
         K2.decode_levels(*args)
+    if first is not None:
+        assert f"nodes [{first}," in str(e.value)
+
+
+# K1's route (k1_parse, then k2_resolve): the fault, long_arcs (None: the
+# default) and the error
+K1_FAULTS = [("stream", None, "invalid code"), ("stream", 2, "invalid code"),
+             ("offsets", None, "record counts disagree"),
+             ("window", None, "reference beyond the window"),
+             ("record", None, "record counts disagree, parent failed"),
+             ("clash", None, "record counts disagree, parent failed"),
+             ("interval", None, "record counts disagree, parent failed"),
+             ("interval", 2, "record counts disagree, parent failed"),
+             ("long", None, "invalid code, parent failed"),
+             ("long", 2, "invalid code, parent failed")]
+
+
+@pytest.fixture(scope="module")
+def k1_graphs(tmp_path_factory):
+    """Two graphs K1 decodes, stored with cnr-2000's parameters: a small
+    web-like graph (chains 3 deep) and a small long-record graph (node 10
+    links 4,000 scattered nodes, node 11 copies it)."""
+    tmp = tmp_path_factory.mktemp("k1")
+    out = {}
+    for name, g in (("weblike", weblike_graph(3000, seed=0, hubs=0)),
+                    ("long", long_record_graph(30_000))):
+        base = os.path.join(tmp, name)
+        BVGraph.store(g, base, **CNR)
+        out[name] = BVGraph.load(base)
+    return out
+
+
+def _k1_faulty(fault, long_arcs, k1_graphs):
+    bv = k1_graphs["long" if fault == "long" else "weblike"]
+    assert D2.supports(bv)
+    prep = D2.prepare(bv, "cpu", long_arcs=long_arcs or D2.LONG_ARCS)
+    args, first = _faulty(fault, prep, bv, depth=2)
+    return args, prep.sizes(), first
+
+
+@pytest.mark.parametrize("fault,long_arcs,message", K1_FAULTS)
+def test_k1_node_errors_raise(fault, long_arcs, message, k1_graphs):
+    """K1's route fails loudly on the same faults as K2's, on short records
+    and on records parsed a block each (``long_arcs`` 2, and the 4,000-arc
+    record at the default), naming the corrupted record first."""
+    args, sizes, first = _k1_faulty(fault, long_arcs, k1_graphs)
+    with pytest.raises(RuntimeError, match=message) as e:
+        D2.decode_records(*args, **sizes)
     if first is not None:
         assert f"nodes [{first}," in str(e.value)
 
@@ -305,6 +385,22 @@ def test_node_errors_raise_on_card(fault, message, tmp_path, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fault,long_arcs,message", K1_FAULTS)
+def test_k1_node_errors_raise_on_card(fault, long_arcs, message, k1_graphs,
+                                      cuda):
+    """The same faults through ``k1_parse`` and ``k2_resolve`` raise the
+    same error as on the CPU, without hanging on the failed nodes'
+    children."""
+    args, sizes, _ = _k1_faulty(fault, long_arcs, k1_graphs)
+    with pytest.raises(RuntimeError, match=message) as on_cpu:
+        D2.decode_records(*args, **sizes)
+    on_card = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(RuntimeError, match=message) as e:
+        D2.decode_records(*on_card, **sizes)
+    assert str(e.value) == str(on_cpu.value)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name,kernel", [("er_w7r3i4", "k1"),
                                          ("deep_chain6000_i2", "k2")])
 def test_bvgraph_to_csr_defaults_to_the_card(name, kernel, tmp_path, cuda,
@@ -312,9 +408,9 @@ def test_bvgraph_to_csr_defaults_to_the_card(name, kernel, tmp_path, cuda,
     """``BVGraph.to_csr()`` with no arguments launches K1 or K2."""
     monkeypatch.delenv("WGT_DECODE_BACKEND", raising=False)
     g, bv = _stored(name, tmp_path)
-    before = (D2.decode_lanes.launches, _k2_launches())
+    before = (_k1_launches(), _k2_launches())
     off, succ = bv.to_csr()
-    after = (D2.decode_lanes.launches, _k2_launches())
+    after = (_k1_launches(), _k2_launches())
     rose = [b > a for a, b in zip(before, after)]
     assert rose == [kernel == "k1", kernel == "k2"]
     _assert_csr(g, torch.from_numpy(off), torch.from_numpy(succ))

@@ -34,7 +34,8 @@ for name in ("bits.bitstream", "bits.codes", "bits.vcodes", "bits.elias_fano",
              "graph.builders", "graph.csr", "graph.immutable_graph",
              "graph.properties", "formats.bvgraph", "formats.bvgraph_np",
              "kernels._build", "kernels.decode", "kernels.decode2",
-             "kernels.pcodes", "kernels.plan", "native", "synth"):
+             "kernels.levels", "kernels.pcodes", "kernels.plan", "native",
+             "synth"):
     assert "webgraph_tpu_torch." + name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -77,7 +78,7 @@ def test_cpu_tensors_launch_nothing(tmp_path):
     from webgraph_tpu_torch.kernels import pcodes as P
     from webgraph_tpu_torch.synth import deep_chain_graph
 
-    counts = (D2.decode_lanes.launches, P.probe.launches,
+    counts = (sum(D2.decode_records.counts.values()), P.probe.launches,
               sum(K2.decode_levels.counts.values()))
     for g, kw in ((MutableGraph.erdos_renyi(120, 0.05, seed=3), {}),
                   (deep_chain_graph(1200), dict(max_ref_count=2**31 - 1,
@@ -90,7 +91,7 @@ def test_cpu_tensors_launch_nothing(tmp_path):
         np.testing.assert_array_equal(succ, tsucc)
     words = torch.zeros(4, dtype=torch.int64)
     P.probe(words, torch.zeros(3, dtype=torch.int64), C.GAMMA)
-    assert (D2.decode_lanes.launches, P.probe.launches,
+    assert (sum(D2.decode_records.counts.values()), P.probe.launches,
             sum(K2.decode_levels.counts.values())) == counts
 
 

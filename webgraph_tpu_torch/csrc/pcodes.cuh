@@ -4,9 +4,10 @@
 // extract32, extract_wide, read_unary_short, read_gamma_u, read_delta_u,
 // read_zeta_u, read_minimal_binary, nat2int_u, make_window_reader).  The TPU
 // version holds a 64-bit MSB-first window as two uint32 vector registers;
-// here it is one uint64_t register, rebuilt per code from two big-endian
-// stream words at an int64 bit cursor (Reader, K1), or shifted out of two
-// words held in registers (BufReader, K2's parse).
+// here it is one uint64_t register, shifted out of two big-endian stream
+// words held in registers (BufReader, the record parse of K1 and K2), or
+// rebuilt from two words at a bit cursor (window64: the probe, and K1's
+// long-record tiles in shared memory).
 //
 // Every reader returns the decoded value and writes the code length.  A
 // length above 64 marks a code that does not fit one window or whose value
@@ -133,28 +134,11 @@ struct Codings {
   int outd, ref, bcnt, blk, res, k, window, minint;
 };
 
-// Reads codes at int64 bit cursors and records the first error.
-struct Reader {
-  const uint64_t* w;
-  int64_t nbits;
-  int err;
-
-  __device__ __forceinline__ int64_t read(int64_t& pos, int coding, int k) {
-    if (err) return 0;
-    if (pos < 0 || pos >= nbits) { err = ERR_CODE; return 0; }
-    int len;
-    const uint32_t v = read_code(window64(w, pos), coding, k, len);
-    if (len > 64 || pos + len > nbits) { err = ERR_CODE; return 0; }
-    pos += len;
-    return static_cast<int64_t>(v);
-  }
-};
-
 // Reads codes in stream order from a buffer in registers: the two stream
 // words under the cursor, refilled one word at a time as the cursor crosses
-// a word boundary.  A code costs a few shifts and at most one global load,
-// where Reader rebuilds its window from two loads per code.  Copying the
-// struct saves the cursor.  Same codes, lengths and errors as Reader.
+// a word boundary.  A code costs a few shifts and at most one global load.
+// Copying the struct saves the cursor.  An error is recorded once: a code
+// that does not fit one window or runs past the stream (ERR_CODE).
 struct BufReader {
   const uint64_t* w;
   int64_t nbits;

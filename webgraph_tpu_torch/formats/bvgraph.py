@@ -17,11 +17,13 @@ reference-selection loop):
 The decode half (:func:`prepare`, :func:`decode_prepared`,
 :func:`decode_to_csr`, :func:`to_csr`) is the counterpart of the JAX
 package's ``pallas/decode2.py::decode_to_csr_auto``.  The host structure
-scan (``kernels/plan.py``) routes a graph to K1, the streaming lane-range
-kernel (``kernels/decode2.py``), when its reference chains reach back at
-most 256 nodes, else to K2, the chain-depth level kernel
-(``kernels/decode.py``).  Both read γ, δ, ζ and unary codes with window
-<= 7; any other graph raises NotImplementedError, and its host path is
+scan (``kernels/plan.py``) routes a graph to K1 (``kernels/decode2.py``:
+a record-parallel parse that gives long records a block each) when its
+reference chains reach back at most 256 nodes, else to K2
+(``kernels/decode.py``: a parse of a thread a record).  Both then resolve
+the copy chains in one persistent launch, decode straight into CSR and
+read γ, δ, ζ and unary codes with window <= 7; any other graph raises
+NotImplementedError, and its host path is
 :func:`webgraph_tpu_torch.formats.bvgraph_np.decode_to_csr`.  The entry
 points run on the card unless the caller passes ``device="cpu"``, where
 the kernels' plain PyTorch versions run.
@@ -1146,31 +1148,14 @@ def _compress_shard(
 # ----------------------------------------------------------------------
 
 
-@dataclass
-class Prepared:
-    """A graph planned for K1 on one device."""
-
-    device: torch.device
-    tiles: list            # D2.LanePlan per tile
-    inputs: list           # D2.LaneInputs per tile, on the device
-    prows: list            # each tile's prow on the device
-    exp_wps: list          # each tile's expected emission counts (int32)
-    words: torch.Tensor    # stream words (int64 bit patterns)
-    bo: torch.Tensor       # node bit offsets (int64, n + 1)
-    outdegrees: torch.Tensor  # int64 (n,)
-    offsets: torch.Tensor  # CSR offsets (int64, n + 1)
-    bases: list            # each tile's first CSR position
-    skey: tuple
-
-
-def prepare(g, device="cuda", *, tile_arcs: int | None = None):
+def prepare(g, device="cuda"):
     """Scan, route and move to ``device`` everything a decode needs.
 
-    Returns a :class:`Prepared` (K1) when K1 supports ``g``, else a
-    ``K2.LevelPrepared`` (K2).  For K1, one plan covers the graph when it
-    fits one launch; otherwise (or when ``tile_arcs`` is given) the graph is
-    cut into arc-balanced tiles.  Raises NotImplementedError for graphs
-    neither kernel decodes."""
+    Returns a ``decode2.Prepared`` (K1) when K1 supports ``g``, else a
+    ``decode.LevelPrepared`` (K2): both the depth plan of
+    ``kernels/levels.py``, K1's with the records of at least
+    ``decode2.LONG_ARCS`` arcs listed for a block each.  Raises
+    NotImplementedError for graphs neither kernel decodes."""
     if not K2.supports(g):
         s = g.settings
         raise NotImplementedError(
@@ -1179,33 +1164,10 @@ def prepare(g, device="cuda", *, tile_arcs: int | None = None):
             f"gamma, delta, zeta and unary codes with window <= 7.  Its host "
             f"path is webgraph_tpu_torch.formats.bvgraph_np.decode_to_csr; "
             f"an all-codings device decoder is ROADMAP A.11")
-    device = torch.device(device)
     scan = scan_structure(g)
     if not D2.supports(g, scan):
         return K2.prepare(g, device, scan=scan)
-    if tile_arcs is None:
-        try:
-            tiles = [D2.plan_lanes(g, scan)]
-        except ValueError:
-            tiles = D2.plan_tiles(g, scan)
-    else:
-        tiles = D2.plan_tiles(g, scan, tile_arcs=tile_arcs)
-    d = scan.d.astype(np.int64)
-    offsets = np.zeros(len(d) + 1, dtype=np.int64)
-    np.cumsum(d, out=offsets[1:])
-    return Prepared(
-        device=device,
-        tiles=tiles,
-        inputs=[D2.LaneInputs.of(p, device) for p in tiles],
-        prows=[p.prow.to(device) for p in tiles],
-        exp_wps=[p.exp_wp.to(device=device, dtype=torch.int32) for p in tiles],
-        words=D2.stream_words(g, device),
-        bo=torch.from_numpy(np.asarray(g.bit_offsets, np.int64)).to(device),
-        outdegrees=torch.from_numpy(d).to(device),
-        offsets=torch.from_numpy(offsets).to(device),
-        bases=[int(offsets[p.lo]) for p in tiles],
-        skey=D2.coding_key(g.settings),
-    )
+    return D2.prepare(g, device, scan=scan)
 
 
 def decode_prepared(prep) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1213,37 +1175,17 @@ def decode_prepared(prep) -> tuple[torch.Tensor, torch.Tensor]:
     int32[m])`` on the prepared device."""
     if isinstance(prep, K2.LevelPrepared):
         return K2.decode_prepared(prep)
-    off, dd = prep.offsets, prep.outdegrees
-    succ = torch.empty(sum(p.m for p in prep.tiles), dtype=torch.int32,
-                       device=prep.device)
-    for plan, li, prow, exp_wp, base in zip(
-            prep.tiles, prep.inputs, prep.prows, prep.exp_wps, prep.bases):
-        slab, wp = D2.decode_lanes(prep.words, prep.bo, li, prep.skey)
-        if not torch.equal(wp, exp_wp):
-            bad = torch.nonzero(wp != exp_wp).flatten()[:8]
-            raise AssertionError(
-                f"lane emission counts off at lanes {bad.tolist()} (tile "
-                f"[{plan.lo}, {plan.hi})): {wp[bad].tolist()} vs "
-                f"{exp_wp[bad].tolist()}")
-        lo, hi, mt = plan.lo, plan.hi, plan.m
-        # ragged gather: node x's list lives at slab[prow[x - lo] ...]
-        dl = dd[lo:hi]
-        take = torch.repeat_interleave(prow[:hi - lo], dl, output_size=mt) + (
-            torch.arange(mt, device=prep.device)
-            - torch.repeat_interleave(off[lo:hi] - off[lo], dl,
-                                      output_size=mt))
-        succ[base:base + mt] = slab.reshape(-1)[take]
-    return off, succ
+    return D2.decode_prepared(prep)
 
 
-def decode_to_csr(g, device="cuda", *, tile_arcs: int | None = None):
+def decode_to_csr(g, device="cuda"):
     """Decode ``g`` on ``device``: ``(offsets int64[n+1], successors
     int32[m])`` as tensors there, equal to ``bvgraph_np.decode_to_csr``.
 
-    A CUDA device runs the K1 or K2 kernel; the CPU runs its plain PyTorch
-    version.  Raises NotImplementedError for graphs neither kernel
+    A CUDA device runs the K1 or K2 kernels; the CPU runs their plain
+    PyTorch versions.  Raises NotImplementedError for graphs neither kernel
     decodes."""
-    return decode_prepared(prepare(g, device, tile_arcs=tile_arcs))
+    return decode_prepared(prepare(g, device))
 
 
 def to_csr(g, device="cuda") -> tuple[np.ndarray, np.ndarray]:

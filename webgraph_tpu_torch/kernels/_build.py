@@ -27,7 +27,7 @@ import types
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-HEADERS = ("pcodes.cuh",)
+HEADERS = ("pcodes.cuh", "records.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,11 +39,13 @@ _SIGNATURES = {
     "decode2.cu": {
         # words, nbits, pos, b, n, coding, k, val, len, stream
         "wgt_k0_probe": (_P, _L, _P, _P, _I, _I, _I, _P, _P, _P),
-        # words, nbits, bo, gid0, gid0b, cnt, cnta, d7, d7b, lanes, slabw,
-        # outd, ref, bcnt, blk, res, zeta_k, window, minint, slab, wp, err,
-        # stream
-        "wgt_k1_decode2": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _L,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+        # words, nbits, bo, offsets, order, bstart, n, b1, long, nlong,
+        # outd, ref, bcnt, blk, res, zeta_k, window, minint,
+        # ext, bend, rank, ref, nex, flags, succ, err,
+        # launched (host int[1]), stream
+        "wgt_k1_parse": (_P, _L, _P, _P, _P, _P, _L, _L, _P, _L,
+                         _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     },
     "decode.cu": {
         # words, nbits, bo, offsets, order, bstart, n, b1,
@@ -53,6 +55,10 @@ _SIGNATURES = {
         "wgt_k2_decode": (_P, _L, _P, _P, _P, _P, _L, _L,
                           _I, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
+        # offsets, order, b1, n, bstart, bend, ext, rank, ref, nex, flags,
+        # ticket, succ, err, launched (host int[1]), stream
+        "wgt_k2_resolve": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P),
         # vals, cnt, qpos, lanes, depth, pool, q, stream
         "wgt_k2_compact_probe": (_P, _P, _P, _I, _I, _P, _P, _P),
     },

@@ -9,9 +9,9 @@ A length above 64 marks a code that does not fit one window or whose value
 does not fit uint32; the decoders turn it into an error.
 
 On the card the readers are ``__device__`` functions in ``csrc/pcodes.cuh``,
-inlined into the decode kernel (K1).  :func:`probe` runs them on their own
-through a small kernel, so that K0 is checked against these plain versions
-and the oracle by itself.
+inlined into the parse kernels (``k1_parse``, ``k2_parse``).
+:func:`probe` runs them on their own through a small kernel, so that K0 is
+checked against these plain versions and the oracle by itself.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ A copy of ``StructureScan`` and ``scan_structure`` from the JAX package's
 TPU VMEM and has no counterpart here).  A vectorized host scan of the
 structure codes (outdegree, reference, block count, blocks, interval
 count) yields per-node counts and the global reference-chain depth, from
-which the lane plan of K1 (``kernels/decode2.py``) and the depth levels of
-K2 (``kernels/decode.py``) are derived.  Same logic as phase 1 of
+which the depth levels of K1 and K2 (``kernels/levels.py``) are derived.
+Same logic as phase 1 of
 ``formats/bvgraph_np.py``.
 """
 

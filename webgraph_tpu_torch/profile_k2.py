@@ -4,7 +4,7 @@ For each K2 cell of ``synth.CELLS`` (the web-like graph of cnr-2000's
 size stored with unbounded maxref, and config 3's deep-chain graph at
 minint 2) this times the whole decode (``timing.cuda_ms``, median of 5
 after a warm-up), then traces 5 more decodes with ``torch.profiler`` and
-reads the device time of each kernel (``timing.kernel_spans``).  It prints
+reads the device time of each kernel (``timing.kernel_runs``).  It prints
 one JSON line per cell: ``k2_parse`` and ``k2_resolve`` ms (medians), the
 device's busy share from the start of ``k2_parse`` to the end of
 ``k2_resolve`` (the rest is the gap between them), ``k2_resolve``'s time
@@ -23,7 +23,7 @@ import subprocess
 import sys
 import tempfile
 
-from webgraph_tpu_torch.timing import cuda_ms, kernel_spans
+from webgraph_tpu_torch.timing import cuda_ms, kernel_runs
 
 
 def profile(bv, label, card):
@@ -32,33 +32,26 @@ def profile(bv, label, card):
     from webgraph_tpu_torch.kernels import decode as K2
 
     prep = K2.prepare(bv, "cuda")
-    args = prep.args()
-    K2.decode_levels(*args)
-    whole = cuda_ms(lambda: K2.decode_levels(*args), 5)
-    spans = kernel_spans(lambda: K2.decode_levels(*args), 5,
-                         ("k2_parse", "k2_resolve"))
-    parse = [(e - s) / 1e3 for s, e in spans["k2_parse"]]
-    resolve = [(e - s) / 1e3 for s, e in spans["k2_resolve"]]
-    # each decode's k2_parse with the k2_resolve that follows it before
-    # the next decode's k2_parse
-    starts = [p[0] for p in spans["k2_parse"][1:]] + [float("inf")]
-    pairs = [(p, r) for p, nxt in zip(spans["k2_parse"], starts)
-             for r in spans["k2_resolve"] if p[1] <= r[0] < nxt]
-    span = [(r[1] - p[0]) / 1e3 for p, r in pairs]
-    busy = [((p[1] - p[0]) + (r[1] - r[0])) / 1e3 / s
-            for (p, r), s in zip(pairs, span)]
+    K2.decode_prepared(prep)
+    whole = cuda_ms(lambda: K2.decode_prepared(prep), 5)
+    runs = kernel_runs(lambda: K2.decode_prepared(prep), 5,
+                       ("k2_parse", "k2_resolve"))
+    parse = [(r["k2_parse"][1] - r["k2_parse"][0]) / 1e3 for r in runs]
+    resolve = [(r["k2_resolve"][1] - r["k2_resolve"][0]) / 1e3 for r in runs]
+    span = [(r["k2_resolve"][1] - r["k2_parse"][0]) / 1e3 for r in runs]
+    busy = [(p + q) / s for p, q, s in zip(parse, resolve, span)]
     links = len(prep.bounds) - 2
     bits = (prep.bo[1:] - prep.bo[:-1]).cpu().numpy()
     longest = int(bits.argmax())
     arcs = (prep.offsets[1:] - prep.offsets[:-1]).cpu().numpy()
-    n, m = prep.order.numel(), int(prep.offsets[-1])
+    n, m = prep.order.numel(), prep.m
     res_ms = statistics.median(resolve)
     out = {
         "cell": label, "card": card, "n": n, "m": m,
         "levels": len(prep.bounds) - 1, "depth0_nodes": int(prep.bounds[1]),
         "decode_ms": whole, "k2_parse_ms": statistics.median(parse),
         "k2_resolve_ms": res_ms, "span_ms": statistics.median(span),
-        "busy_share": statistics.median(busy), "traced_decodes": len(pairs),
+        "busy_share": statistics.median(busy), "traced_decodes": len(runs),
         "chain_links": links,
         "resolve_us_per_link": res_ms / max(links, 1) * 1e3,
         "largest_level": int(np.diff(prep.bounds).max()),

@@ -109,6 +109,38 @@ def deep_chain_graph(n: int = 60000, period: int = 37) -> CSRGraph:
     return CSRGraph.from_lists(lists + [[]] * (n - n // 2))
 
 
+def long_record_graph(n: int = 300_000, seed: int = 0) -> CSRGraph:
+    """Sparse random lists (0 or 1 arc) around a few long records: node 10
+    links 4,000 scattered nodes (~40,000 bits of residuals, 5 tiles of
+    K1's long-record parse), node 11 copies 3,000 of them and adds 200
+    more, node 12 is one interval of 6,000 nodes, node 13 holds 600
+    intervals with a residual after each (more than K1's long-record parse
+    keeps in shared memory) and node 14 holds 100 intervals with residuals
+    between them."""
+    rng = np.random.default_rng(seed)
+    src = np.flatnonzero(rng.random(n) < 0.5)
+    parts = [(src, rng.integers(0, n, size=len(src)))]
+    hub = np.sort(rng.choice(n, 4000, replace=False))
+    rest = np.setdiff1d(np.arange(n), hub)
+    special = {
+        10: hub,
+        11: np.concatenate([rng.choice(hub, 3000, replace=False),
+                            rng.choice(rest, 200, replace=False)]),
+        12: np.arange(100, 6100),
+        13: (7000 + 9 * np.arange(600)[:, None]
+             + np.array([0, 1, 2, 3, 4, 7])).ravel(),
+        14: (15000 + 20 * np.arange(100)[:, None]
+             + np.array([0, 1, 2, 3, 4, 5, 11, 15])).ravel(),
+    }
+    parts[0] = tuple(a[~np.isin(parts[0][0], list(special))]
+                     for a in parts[0])
+    parts += [(np.full(len(v), x), v) for x, v in special.items()]
+    src = np.concatenate([p[0] for p in parts])
+    dst = np.concatenate([p[1] for p in parts])
+    ok = dst != src
+    return CSRGraph.from_arcs(src[ok], dst[ok], n, dedup=True)
+
+
 MAXREF_INF = 2**31 - 1  # maxref of unbounded reference chains
 
 #: The decode cells at size: name -> (graph maker, ``BVGraph.store``

@@ -24,12 +24,13 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def kernel_spans(fn, reps, names):
-    """``reps`` runs of ``fn()`` traced with ``torch.profiler``: for each
-    of ``names`` (kernel names), the (start, end) of its launches in
-    microseconds, in launch order.  The trace may drop a few kernels'
-    records; raises if it shows none of a named kernel, or more than
-    ``reps``."""
+def kernel_runs(fn, reps, names):
+    """``reps`` runs of ``fn()`` in one ``torch.profiler`` trace, split
+    into runs at the launches of ``names[0]`` (one a run): a list of the
+    runs whose share of the trace shows every launch, each a dict from the
+    kernel names of ``names`` to the (start, end) of their one launch in
+    microseconds.  A run whose records the trace dropped is left out;
+    raises if every run is."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -38,20 +39,24 @@ def kernel_spans(fn, reps, names):
         for _ in range(reps):
             fn()
             torch.cuda.synchronize()
-    spans = {}
-    for name in names:
-        got = sorted((e.time_range.start, e.time_range.end) for e in t.events()
-                     if name in e.name)
-        if not 0 < len(got) <= reps:
-            raise RuntimeError(f"the trace shows {len(got)} {name} kernels "
-                               f"for {reps} runs")
-        spans[name] = got
-    return spans
+    spans = {name: sorted((e.time_range.start, e.time_range.end)
+                          for e in t.events() if name in e.name)
+             for name in names}
+    starts = [s for s, _ in spans[names[0]]] + [float("inf")]
+    runs = []
+    for a, b in zip(starts[:-1], starts[1:]):
+        run = {k: [x for x in v if a <= x[0] < b] for k, v in spans.items()}
+        if all(len(v) == 1 for v in run.values()):
+            runs.append({k: v[0] for k, v in run.items()})
+    if not runs:
+        raise RuntimeError(f"no run of {reps} shows every launch of {names} "
+                           f"in the trace")
+    return runs
 
 
 def kernel_ms(fn, reps, names):
     """Median device milliseconds of each kernel of ``names`` over ``reps``
-    traced runs of ``fn()``."""
-    spans = kernel_spans(fn, reps, names)
-    return {k: statistics.median((e - s) / 1e3 for s, e in v)
-            for k, v in spans.items()}
+    runs of ``fn()`` (:func:`kernel_runs`)."""
+    runs = kernel_runs(fn, reps, names)
+    return {k: statistics.median((r[k][1] - r[k][0]) / 1e3 for r in runs)
+            for k in names}
