@@ -3,7 +3,8 @@
 
 Drives the port's main path, bulk BVGraph decode into CSR, on the card,
 through its two routes (K1 for reference chains that reach back at most
-256 nodes, K2 for longer ones), using only the port's own modules:
+256 nodes, K2 for longer ones), and batched random access through K1's
+kernels, using only the port's own modules:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the CUDA kernels from ``webgraph_tpu_torch/csrc``;
@@ -42,7 +43,15 @@ through its two routes (K1 for reference chains that reach back at most
    and the plain versions of both kernels, then timed (each kernel's device
    time from ``torch.profiler``);
 9. K2 stress, ``deep-chain-config3-minint2``: the same on config 3's graph
-   at minint 2, whose chains run 17,819 deep.
+   at minint 2, whose chains run 17,819 deep;
+10. batched random access (``kernels/query2.QueryPlanner``), after phases
+   5 and 8 on their graphs: batches of 1, 16, 64, 1,024 and 16,384 nodes
+   drawn by ``utils.rng.XoRoShiRo128PlusRandom(0)``, each
+   ``successors_batch`` counted from 0 (``k1_parse`` and ``k2_resolve``
+   once each through K1's wrapper, K2's wrapper not, over the batch's
+   ancestor closure), exact against the bulk decode's CSR, then timed (host
+   plan, each kernel, the batch, ns a node); the 1,024 batch's kernels
+   held to their plain versions on the same closure.
 
 It prints a JSON line of per-kernel results and, last, a JSON line with the
 device.  Any failure raises, so the exit code is not 0 and no last line is
@@ -298,21 +307,22 @@ def _counts():
             + K2.parse_records.launches + D2.parse_records.launches}
 
 
-def _codes(bv, scan):
-    """Codes a decode must read once: outdegree, reference, block count and
-    blocks, interval count and intervals, residuals."""
+def _codes(bv, scan, nodes):
+    """Codes a decode of the records of ``nodes`` must read once:
+    outdegree, reference, block count and blocks, interval count and
+    intervals, residuals."""
     import numpy as np
 
     s = bv.settings
-    d = scan.d.astype(np.int64)
-    ref = scan.ref.astype(np.int64)
-    extra = np.where(ref > 0, d - scan.copied.astype(np.int64), d)
+    d = scan.d.astype(np.int64)[nodes]
+    ref = scan.ref.astype(np.int64)[nodes]
+    extra = np.where(ref > 0, d - scan.copied.astype(np.int64)[nodes], d)
     extra[d == 0] = 0
     return int((1 + ((d > 0) & (s.window_size > 0))
-                + (ref > 0) * (1 + scan.block_count.astype(np.int64))
+                + (ref > 0) * (1 + scan.block_count.astype(np.int64)[nodes])
                 + ((extra > 0) & (s.min_interval_length != 0))
-                * (1 + 2 * scan.int_count.astype(np.int64))
-                + scan.res_count.astype(np.int64)).sum())
+                * (1 + 2 * scan.int_count.astype(np.int64)[nodes])
+                + scan.res_count.astype(np.int64)[nodes]).sum())
 
 
 def _bound(nbytes, ops):
@@ -400,7 +410,7 @@ def phase_main(bv, label, card, tmpdir):
     ksucc, perr, cerr, parse_plain, copy_plain = _vs_plain(
         prep, D2.decode_records, D2.parse_records)
     check(torch.equal(ksucc, succ), f"{label}: K1 runs differ")
-    (pb, pby), (cb, cby) = _level_bounds(bv, prep, scan)
+    (pb, pby), (cb, cby) = _prep_bounds(bv, prep, scan)
     print(f"{label}: launches k1_parse {c['k1']['k1_parse']} k2_resolve "
           f"{c['k1']['k2_resolve']}, K2's wrapper 0; decode "
           f"{decode_ms:.4f} ms = {m / decode_ms / 1e3:.2f} Medges/s; "
@@ -453,6 +463,8 @@ def phase_main(bv, label, card, tmpdir):
                        "plain_ms": copy_plain, "bound_ms": cb,
                        "bound_by": cby},
         "decode_ms": decode_ms,
+        "csr": (off, succ),
+        "scan": scan,
     }
 
 
@@ -585,35 +597,47 @@ def phase_k2_small(tmp):
     print(f"K2 small: {len(graphs)} graphs exact vs plain decoder and oracle")
 
 
-def _level_bounds(bv, prep, scan):
-    """Bounds (ms, what bounds it) of a route's parse and copy kernels on
-    this graph: what each must read and write once, and one operation per
-    code read (parse) or arc written (copy)."""
+def _level_bounds(bv, scan, order, bounds, nlong, stream_bytes):
+    """Bounds (ms, what bounds it) of a route's parse and copy kernels over
+    the records of ``order`` (node ids in depth order, int64; every node
+    for a bulk decode, a batch's ancestor closure for a query) split by
+    ``bounds``, ``nlong`` of them long, whose stream the parse reads as
+    ``stream_bytes``: what each kernel must read and write once, and one
+    operation per code read (parse) or arc written (copy)."""
     import numpy as np
 
-    n = prep.order.numel()
-    b1 = int(prep.bounds[1]) if len(prep.bounds) > 1 else n
+    n = order.size
+    b1 = int(bounds[1]) if len(bounds) > 1 else n
     d = scan.d.astype(np.int64)
     ref = scan.ref.astype(np.int64)
     copied = np.where(ref > 0, scan.copied.astype(np.int64), 0)
-    nblocks = int(scan.block_count.astype(np.int64).sum())
-    extras = int((d - copied).sum())
-    deep = prep.order[b1:].long().cpu().numpy()
+    blocks = scan.block_count.astype(np.int64)
+    nblocks = int(blocks[order].sum())
+    extras = int((d[order] - copied[order]).sum())
+    deep = order[b1:]
     idx = 8 * (n + 1)  # one int64 index array (bo, offsets, bstart)
-    nlong = prep.long.numel() if hasattr(prep, "long") else 0
     # parse: the stream, bo, offsets, bstart, order and the long records'
     # positions in; the extras, block ends, rank, reference, extras count
     # and error out
-    parse = (prep.words.numel() * 8 + 3 * idx + 4 * n + 4 * nlong
+    parse = (stream_bytes + 3 * idx + 4 * n + 4 * nlong
              + 4 * (extras + nblocks) + 4 * 4 * n)
     # copy: offsets, bstart, the deep nodes' order slots, reference,
     # extras count, error, rank of their parents, their extras and block
     # ends, the copied arcs of their parents in; their lists out
     copy = (2 * idx + 6 * 4 * len(deep)
-            + 4 * int((d[deep] - copied[deep]).sum()) + 4 * nblocks
+            + 4 * int((d[deep] - copied[deep]).sum())
+            + 4 * int(blocks[deep].sum())
             + 4 * int(copied[deep].sum()) + 4 * int(d[deep].sum()))
-    return (_bound(parse, _codes(bv, scan) + extras),
+    return (_bound(parse, _codes(bv, scan, order) + extras),
             _bound(copy, int(d[deep].sum())))
+
+
+def _prep_bounds(bv, prep, scan):
+    """:func:`_level_bounds` of a bulk decode's plan: every record, the
+    whole stream."""
+    nlong = prep.long.numel() if hasattr(prep, "long") else 0
+    return _level_bounds(bv, scan, prep.order.long().cpu().numpy(),
+                         prep.bounds, nlong, prep.words.numel() * 8)
 
 
 def phase_k2_main(bv, label, card):
@@ -665,7 +689,7 @@ def phase_k2_main(bv, label, card):
     ksucc, perr, rerr, parse_plain, resolve_plain = _vs_plain(
         prep, K2.decode_levels, K2.parse_records)
     check(torch.equal(ksucc, succ), f"{label}: K2 runs differ")
-    (pb, pby), (rb, rby) = _level_bounds(bv, prep, scan)
+    (pb, pby), (rb, rby) = _prep_bounds(bv, prep, scan)
     print(f"{label}: n {n} m {m} reach {reach} max depth {int(depth.max())} "
           f"levels {levels} (nodes per level: median "
           f"{float(np.median(sizes)):.0f}, max {int(sizes.max())}; "
@@ -686,7 +710,172 @@ def phase_k2_main(bv, label, card):
         "k2_resolve": {"launches": kr, "max_abs_err": rerr,
                        "ms": kms["k2_resolve"], "plain_ms": resolve_plain,
                        "bound_ms": rb, "bound_by": rby},
+        "csr": (off, succ),
+        "scan": scan,
     }
+
+
+# batch sizes of the query phase: the reference's lane count (1,024),
+# smaller batches for latency, and one that fills more of the card
+QUERY_BATCHES = (1, 16, 64, 1024, 16384)
+QUERY_VS_PLAIN = 1024  # the batch whose kernels are held to the plain ones
+
+
+def _ragged(starts, counts):
+    """(row, index in row, flat position) of every item of rows of
+    ``counts`` items starting at ``starts`` (int64 NumPy arrays)."""
+    import numpy as np
+
+    row = np.repeat(np.arange(counts.size), counts)
+    j = np.arange(int(counts.sum())) - np.repeat(np.cumsum(counts) - counts,
+                                                 counts)
+    return row, j, starts[row] + j
+
+
+def _query_vs_plain(qp, plan):
+    """The 1,024 batch's kernels against their plain versions on the same
+    subset, on the card: ``k1_parse`` alone against ``parse_records_plain``
+    in the closure's slots (extras, block ends, references, errors) and
+    the decode against ``resolve_copies_plain`` in the closure's list
+    slots.  Returns (parse max |err|, copy max |err|, plain parse ms,
+    plain copy ms)."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu_torch.kernels import decode2 as D2
+    from webgraph_tpu_torch.kernels import levels as L
+
+    order = torch.from_numpy(plan.order.astype(np.int32)).cuda()
+    long = torch.from_numpy(plan.long.astype(np.int32)).cuda()
+    args = (qp.words, qp.bo, order, plan.bounds, qp.offsets, qp.skey,
+            qp.bstart)
+    sizes = dict(m=qp.m, nblocks=qp.nblocks)
+    parsed = D2.parse_records(*args, long, **sizes)
+    plain, parse_ms = _events_ms(lambda: L.parse_records_plain(*args,
+                                                                **sizes))
+    offsets = qp.offsets.cpu().numpy()
+    bstart = qp.bstart.cpu().numpy()
+    x = plan.order
+    slots = torch.from_numpy(_ragged(offsets[x], np.diff(offsets)[x])[2])
+    blocks = torch.from_numpy(_ragged(bstart[x], np.diff(bstart)[x])[2])
+    nodes = order.long()
+    perr = 0
+    for name, idx in (("ext", slots.cuda()), ("bend", blocks.cuda()),
+                      ("ref", nodes), ("err", None)):
+        got, want = getattr(parsed, name), getattr(plain, name)
+        if idx is not None:
+            got, want = got[idx], want[idx]
+        if got.numel():
+            perr = max(perr, int((got.long() - want.long()).abs().max()))
+    check(perr == 0, f"query parse differs from plain (max |err| {perr})")
+    succ = qp.decode(plan)
+    (psucc, err), copy_ms = _events_ms(lambda: L.resolve_copies_plain(
+        plain, order, plan.bounds, qp.offsets, qp.bstart, m=qp.m))
+    L.check_errors(err, order)
+    s = slots.cuda()
+    cerr = int((succ[s].long() - psucc[s].long()).abs().max()) \
+        if s.numel() else 0
+    check(cerr == 0, f"query copies differ from plain (max |err| {cerr})")
+    return perr, cerr, parse_ms, copy_ms
+
+
+def phase_query(bv, label, card, csr, scan):
+    """Batched random access on a cell at size
+    (``kernels/query2.QueryPlanner``): for each of :data:`QUERY_BATCHES`
+    nodes drawn by ``XoRoShiRo128PlusRandom(0)``, ``successors_batch``
+    with the counters reset just before and read just after (``k1_parse``
+    1, ``k2_resolve`` 1 unless the closure is all at depth 0, K2's wrapper
+    0), exact against the bulk decode's CSR ``csr`` (itself checked
+    against the oracle), then timed: the host plan, each kernel's device
+    time, the whole batch (synchronised), ns a queried node.  The 1,024
+    batch's kernels are held to their plain versions on the same subset.
+    Returns the 1,024 batch's kernel rows and the launches of every
+    counted run."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu_torch.kernels.query2 import QueryPlanner
+    from webgraph_tpu_torch.timing import kernel_ms
+    from webgraph_tpu_torch.utils.rng import XoRoShiRo128PlusRandom
+
+    toff, tsucc = (t.cpu().numpy() for t in csr)
+    n = bv.num_nodes()
+    t0 = time.perf_counter()
+    qp = QueryPlanner(bv, "cuda", scan=scan)
+    setup_s = time.perf_counter() - t0
+    launches = {"k1_parse": 0, "k2_resolve": 0}
+    rows = None
+    for size in QUERY_BATCHES:
+        rng = XoRoShiRo128PlusRandom(0)
+        nodes = np.array([rng.next_int(n) for _ in range(size)], np.int64)
+        plan = qp.plan(nodes)
+        deep = plan.bounds.size > 2
+
+        # the query path, counted
+        _reset_counts()
+        out, counts = qp.successors_batch(nodes)
+        torch.cuda.synchronize()
+        c = _counts()
+        check(c["k1"] == {"k1_parse": 1, "k2_resolve": int(deep)}
+              and not any(c["k2"].values()) and c["probes"] == 0,
+              f"{label} query {size}: launches {c}")
+        for k in launches:
+            launches[k] += c["k1"][k]
+        d = np.diff(toff)[nodes]
+        row, j, src = _ragged(toff[nodes], d)
+        want = np.zeros((size, max(int(d.max(initial=1)), 1)), np.int32)
+        want[row, j] = tsucc[src]
+        check(np.array_equal(counts.cpu().numpy(), d)
+              and np.array_equal(out.cpu().numpy(), want),
+              f"{label} query {size}: lists differ from the bulk decode")
+
+        # timing: the host plan, each kernel, the whole batch
+        plan_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            qp.plan(nodes)
+            plan_ms.append((time.perf_counter() - t0) * 1e3)
+        names = ("k1_parse", "k2_resolve") if deep else ("k1_parse",)
+        kms = {"k2_resolve": 0.0, **kernel_ms(lambda: qp.decode(plan), 5,
+                                              names)}
+        batch_ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qp.successors_batch(nodes)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        bms = float(np.median(batch_ms[1:]))
+        print(f"{label} query batch {size}: closure {plan.order.size} nodes "
+              f"({plan.bounds.size - 1} depths, {plan.long.size} long), "
+              f"{int(d.sum())} arcs, launches k1_parse 1 k2_resolve "
+              f"{int(deep)}, exact vs bulk; plan "
+              f"{float(np.median(plan_ms)):.4f} ms, k1_parse "
+              f"{kms['k1_parse']:.4f} ms, k2_resolve {kms['k2_resolve']:.4f} "
+              f"ms, batch {bms:.4f} ms = {bms * 1e6 / size:.1f} ns/node; "
+              f"card {card}")
+        if size == QUERY_VS_PLAIN:
+            perr, cerr, parse_plain, copy_plain = _query_vs_plain(qp, plan)
+            bits = np.asarray(bv.bit_offsets, np.int64)
+            stream = int((bits[plan.order + 1] - bits[plan.order]).sum()) // 8
+            (pb, pby), (cb, cby) = _level_bounds(
+                bv, scan, plan.order, plan.bounds, plan.long.size, stream)
+            rows = {
+                "k1_parse": {"max_abs_err": perr, "ms": kms["k1_parse"],
+                             "plain_ms": parse_plain, "bound_ms": pb,
+                             "bound_by": pby},
+                "k2_resolve": {"max_abs_err": cerr, "ms": kms["k2_resolve"],
+                               "plain_ms": copy_plain, "bound_ms": cb,
+                               "bound_by": cby},
+            }
+            print(f"{label} query batch {size}: kernels exact vs plain on "
+                  f"the closure; k1_parse bound {pb:.6f} ms ({pby}), "
+                  f"k2_resolve bound {cb:.6f} ms ({cby}); plain "
+                  f"{parse_plain:.1f} + {copy_plain:.1f} ms")
+    print(f"{label} query: planner set-up {setup_s:.2f} s; launches over "
+          f"the {len(QUERY_BATCHES)} counted batches {launches}")
+    return {k: {**v, "launches": launches[k], "library_ms": None}
+            for k, v in rows.items()}
 
 
 def main():
@@ -710,13 +899,17 @@ def main():
         print(f"synthetic graph: {time.perf_counter() - t0:.2f} s to make "
               f"and store")
         k1 = phase_main(bv, "weblike-cnr2000-size", card, tmp)
+        query = phase_query(bv, "weblike-cnr2000-size", card, k1["csr"],
+                            k1["scan"])
         if os.path.exists(CNR2000 + ".graph"):
             phase_main(BVGraph.load(CNR2000), "cnr-2000", card, tmp)
         else:
             print(f"cnr-2000: skipped ({CNR2000}.graph not present)")
         phase_k2_small(tmp)
         label = "weblike-cnr2000-size-maxref-inf"
-        k2 = phase_k2_main(_cell(tmp, label), label, card)
+        bv = _cell(tmp, label)
+        k2 = phase_k2_main(bv, label, card)
+        phase_query(bv, label, card, k2["csr"], k2["scan"])
         label = "deep-chain-config3-minint2"
         phase_k2_main(_cell(tmp, label), label, card)
     leaked = sorted(m for m in sys.modules
@@ -735,12 +928,15 @@ def main():
     # compaction helper is inlined into k2_resolve: each runs in every
     # launch of theirs, and is timed on its own through its probe kernel
     # k2_resolve also resolves K1's copies: its numbers on the K1 cell
-    # under "k1_route"
+    # under "k1_route"; both kernels answer batched queries (the 1,024
+    # batch on the K1 cell) under "query_route"
     k2p, k2r = k2["k2_parse"], k2["k2_resolve"]
     k1p = k1["k1_parse"]
     kernels = [
         row("k1_parse", "webgraph_tpu_torch/csrc/decode2.cu",
-            "webgraph_tpu/pallas/decode2.py:617", k1p),
+            "webgraph_tpu/pallas/decode2.py:617", k1p,
+            query_route={**query["k1_parse"],
+                         "replaces": "webgraph_tpu/pallas/query2.py:140"}),
         row("k0_pcodes", "webgraph_tpu_torch/csrc/pcodes.cuh",
             "webgraph_tpu/pallas/pcodes.py:107",
             {**k0, "launches": k1p["launches"] + k2p["launches"]},
@@ -752,7 +948,9 @@ def main():
             "webgraph_tpu/pallas/decode.py:423", k2r,
             phases="_p3_round :938",
             k1_route={**k1["k2_resolve"],
-                      "replaces": "webgraph_tpu/pallas/decode2.py:617"}),
+                      "replaces": "webgraph_tpu/pallas/decode2.py:617"},
+            query_route={**query["k2_resolve"],
+                         "replaces": "webgraph_tpu/pallas/query2.py:140"}),
         row("k2_compact_probe", "webgraph_tpu_torch/csrc/decode.cu",
             "scripts/pallas_compact_chip.py:60",
             {**probe, "launches": k2r["launches"]},

@@ -22,6 +22,7 @@ from webgraph_tpu.formats.bvgraph import BVGraph as JBV
 from webgraph_tpu.graph.builders import MutableGraph as JMG
 from webgraph_tpu.graph.properties import load_properties as j_load_props
 from webgraph_tpu.pallas.plan import scan_structure as j_scan
+from webgraph_tpu.utils.rng import XoRoShiRo128PlusRandom as JRNG
 import webgraph_tpu_torch as wgt
 from webgraph_tpu_torch import native
 from webgraph_tpu_torch.bits import bitstream as PBS
@@ -35,6 +36,7 @@ from webgraph_tpu_torch.graph.csr import CSRGraph
 from webgraph_tpu_torch.graph.properties import store_properties
 from webgraph_tpu_torch.kernels.plan import scan_structure as p_scan
 from webgraph_tpu_torch.synth import weblike_graph
+from webgraph_tpu_torch.utils.rng import XoRoShiRo128PlusRandom as PRNG
 
 _EXT = (".graph", ".offsets", ".properties")
 
@@ -177,6 +179,25 @@ def test_native_codec_builds_in_the_port(tmp_path):
     lib = native.get_lib()
     assert lib is not None
     assert os.path.dirname(lib._name) == native._BUILD_DIR
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**63 + 5])
+def test_rng_matches(seed):
+    """The port's XoRoShiRo128PlusRandom draws what the original draws:
+    SpeedTest's nodes, and every other method, from the same seed."""
+    p, j = PRNG(seed), JRNG(seed)
+    assert [p.next_long() for _ in range(50)] == \
+        [j.next_long() for _ in range(50)]
+    for bound in (1, 2, 7, 1000, 325_557, 2**40 + 3):
+        assert [p.next_int(bound) for _ in range(20)] == \
+            [j.next_int(bound) for _ in range(20)]
+    assert [p.next_long_signed() for _ in range(20)] == \
+        [j.next_long_signed() for _ in range(20)]
+    assert [p.next_double() for _ in range(20)] == \
+        [j.next_double() for _ in range(20)]
+    assert p.shuffle(list(range(100))) == j.shuffle(list(range(100)))
+    with pytest.raises(ValueError):
+        p.next_int(0)
 
 
 def test_weblike_graph_is_unchanged_without_big_sites():

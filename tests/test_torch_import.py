@@ -34,8 +34,9 @@ for name in ("bits.bitstream", "bits.codes", "bits.vcodes", "bits.elias_fano",
              "graph.builders", "graph.csr", "graph.immutable_graph",
              "graph.properties", "formats.bvgraph", "formats.bvgraph_np",
              "kernels._build", "kernels.decode", "kernels.decode2",
-             "kernels.levels", "kernels.pcodes", "kernels.plan", "native",
-             "synth"):
+             "kernels.levels", "kernels.pcodes", "kernels.plan",
+             "kernels.query2", "native", "synth", "tools.speed_test",
+             "utils.rng"):
     assert "webgraph_tpu_torch." + name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -85,6 +85,11 @@ def _launch(words, bo, order, bounds, offsets, skey, bstart, ext, bend, succ,
     reports them."""
     dev = words.device
     n = order.numel()
+    if n != bo.numel() - 1:
+        # the C entry point sizes its scratch and resets the ready flags by
+        # the order's length: a subset goes through K1's wrappers
+        raise ValueError("K2's kernels decode every node of the graph: "
+                         "order must list all of them")
     node = torch.empty((4, n), dtype=torch.int32, device=dev)
     ticket = torch.empty(1, dtype=torch.int32, device=dev)
     err = torch.empty(n, dtype=torch.int32, device=dev)

@@ -18,7 +18,9 @@ K2's depth plan (``kernels/levels.py``):
    of depth >= 1, its parent complete before it (:func:`resolve_copies_plain`).
 
 :func:`decode_records` launches both for CUDA tensors and takes the plain
-versions for CPU tensors.
+versions for CPU tensors.  Batched random access (``kernels/query2.py``)
+calls it with the depth plan of a batch's ancestor closure in place of the
+whole graph's.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from webgraph_tpu_torch.kernels.plan import scan_structure
 MAX_REACH = 256  # longest reference reach (nodes) K1 takes
 # records of at least this many arcs are parsed by a block each
 LONG_ARCS = 1024
+RANK_NONE = 2**31 - 1  # the rank of a node the plan does not list
 
 
 def _minanc(scan, n):
@@ -133,20 +136,28 @@ def _check_long(fn, long, order):
 
 def _parse(words, bo, order, bounds, offsets, skey, bstart, long, ext, bend,
            succ):
-    """One call of ``wgt_k1_parse``; returns the error array, the per-node
-    scratch (rank, reference, extras count, ready flag) and the launches of
-    ``k1_parse`` as the C entry point reports them."""
+    """One call of ``wgt_k1_parse`` over the records ``order`` lists;
+    returns the error array (by position in ``order``), the per-node
+    scratch (rank, reference, extras count, ready flag; int32 (4, n),
+    indexed by node id over all n nodes of the graph, as the kernels write
+    it) and the launches of ``k1_parse`` as the C entry point reports
+    them.  When ``order`` lists a subset, every rank starts past every
+    position, so that ``k2_resolve`` fails a node whose parent ``order``
+    leaves out (ERR_PLAN) at once rather than wait for a flag no kernel
+    sets; over every node ``k1_parse`` writes every rank itself."""
     dev = words.device
-    n = order.numel()
-    node = torch.empty((4, n), dtype=torch.int32, device=dev)
-    err = torch.empty(n, dtype=torch.int32, device=dev)
-    b1 = int(bounds[1]) if len(bounds) > 1 else n
+    k = order.numel()
+    node = torch.empty((4, bo.numel() - 1), dtype=torch.int32, device=dev)
+    if k < node.shape[1]:
+        node[0].fill_(RANK_NONE)
+    err = torch.empty(k, dtype=torch.int32, device=dev)
+    b1 = int(bounds[1]) if len(bounds) > 1 else k
     launched = (ctypes.c_int * 1)()
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.wgt_k1_parse(
             words.data_ptr(), (words.numel() - 2) * 64, bo.data_ptr(),
-            offsets.data_ptr(), order.data_ptr(), bstart.data_ptr(), n, b1,
+            offsets.data_ptr(), order.data_ptr(), bstart.data_ptr(), k, b1,
             long.data_ptr(), long.numel(), *skey, ext.data_ptr(),
             bend.data_ptr(), *(node[r].data_ptr() for r in range(4)),
             succ.data_ptr(), err.data_ptr(), ctypes.addressof(launched),
@@ -157,16 +168,21 @@ def _parse(words, bo, order, bounds, offsets, skey, bstart, long, ext, bend,
 
 def decode_records(words, bo, order, bounds, offsets, skey, bstart, long, *,
                    m=None, nblocks=None):
-    """Decode every node into CSR: returns the int32 successors
-    ``succ[offsets[x]:offsets[x+1]]`` of every node ``x``.  Raises if a node
-    reports an error.
+    """Decode the nodes ``order`` lists into CSR: returns the int32
+    successors ``succ[offsets[x]:offsets[x+1]]`` of every listed node ``x``
+    (``succ`` holds the graph's m slots; those of nodes not listed are left
+    unwritten).  Raises if a node reports an error.
 
     The arguments are those of ``decode.decode_levels`` (the depth plan of
     ``levels.plan_levels``, the stream, the sizes ``m`` and ``nblocks`` on
     the host), and ``long``: int32 positions in ``order`` of the records
     that ``k1_parse`` gives a block each, ascending (``Prepared.long``).
     Every record not listed gets a thread, so the list changes only who
-    parses a record, never the result.
+    parses a record, never the result.  ``order`` may list a subset of
+    the graph's nodes that holds every parent of its nodes, in depth order
+    (``levels.level_order`` over an ancestor closure: the queries of
+    ``kernels/query2.py``); ``bo``, ``offsets`` and ``bstart`` still cover
+    the whole graph.
 
     CPU tensors take :func:`decode_records_plain`; CUDA tensors launch
     ``k1_parse`` and then, when a node has depth >= 1, ``k2_resolve``
@@ -206,8 +222,10 @@ decode_records.counts = {"k1_parse": 0, "k2_resolve": 0}
 def parse_records(words, bo, order, bounds, offsets, skey, bstart, long, *,
                   m=None, nblocks=None) -> Parsed:
     """``k1_parse`` alone, laid out as :func:`parse_records_plain` gives
-    it: every node's extras in ``ext`` (0 elsewhere), depth 0 too.  It does
-    not raise on node errors (they are in ``err``).  CPU tensors take
+    it: every listed node's extras in ``ext`` (0 elsewhere), depth 0 too.
+    It does not raise on node errors (they are in ``err``).  Where
+    ``order`` lists a subset, ``ref`` holds the listed nodes' references
+    and is unwritten elsewhere.  CPU tensors take
     :func:`parse_records_plain`."""
     dev = words.device
     m, nblocks = host_sizes(offsets, bstart, m, nblocks)
@@ -224,7 +242,9 @@ def parse_records(words, bo, order, bounds, offsets, skey, bstart, long, *,
     bend = torch.zeros(nblocks, dtype=torch.int32, device=dev)
     if order.numel() == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
-        return Parsed(ext, bend, empty, empty)
+        return Parsed(ext, bend, torch.zeros(bo.numel() - 1,
+                                             dtype=torch.int32, device=dev),
+                      empty)
     err, node, parses = _parse(words, bo, order, bounds, offsets, skey,
                                bstart, long, ext, bend, ext)
     parse_records.launches += parses

@@ -19,6 +19,11 @@ function, a stored BVGraph into CSR, with the same split:
 
 They differ in how the card parses: K1's parse gives each long record a
 block of its own, K2's parses every record by one thread.
+
+The plan may list a subset of the nodes (:func:`level_order` over a
+batch's ancestor closure, ``kernels/query2.py``): K1's wrappers and both
+plain versions then decode only those records, into the graph's own CSR
+slots, while every array indexed by node id still covers the graph.
 """
 
 from __future__ import annotations
@@ -99,25 +104,51 @@ class LevelPlan:
         return len(self.bounds) - 1
 
 
-def plan_levels(g, scan, long_arcs: int | None = None) -> LevelPlan:
-    """The depth levels of ``g`` from its structure scan (CPU tensors).
-    Every depth from 0 to the maximum holds a node (a node's parent is one
-    level up), so a chain of ``levels`` nodes is the longest.  With
-    ``long_arcs``, ``long`` lists the positions in ``order`` of the records
-    of at least that many arcs (ascending); else it is empty."""
-    n = g.num_nodes()
-    depth = scan.depth.astype(np.int64)
-    order = np.argsort(depth, kind="stable")
-    levels = int(depth.max(initial=-1)) + 1
-    bounds = np.searchsorted(depth[order], np.arange(levels + 1),
-                             side="left").astype(np.int64)
-    d = scan.d.astype(np.int64)
+def csr_starts(scan) -> tuple[np.ndarray, np.ndarray]:
+    """``(offsets, bstart)``: the prefix sums (int64, n + 1) of the
+    outdegrees and of the copy-block counts of the scanned graph, where
+    each node's list and block ends start in CSR."""
+    n = scan.d.size
     offsets = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(d, out=offsets[1:])
+    np.cumsum(scan.d.astype(np.int64), out=offsets[1:])
     bstart = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(scan.block_count.astype(np.int64), out=bstart[1:])
+    return offsets, bstart
+
+
+def level_order(depth, d, nodes=None, long_arcs: int | None = None):
+    """``(order, bounds, long)`` (int64 NumPy arrays) of the depth plan over
+    ``nodes`` (distinct node ids, int64, in any order; every node when
+    None): the nodes sorted by their global chain depth ``depth``, then by
+    id, the range ``order[bounds[k]:bounds[k+1]]`` of each depth from 0 to
+    the largest present, and, with ``long_arcs``, the positions in
+    ``order`` of the records of at least that many arcs (``d``: the
+    outdegrees), else none.  A set that holds every parent of its nodes
+    (an ancestor closure, or the whole graph) has a node at every depth up
+    to its largest."""
+    n = depth.size
+    ids = np.arange(n, dtype=np.int64) if nodes is None else nodes
+    # one sort of (depth, id) packed in an int64: depth <= n < 2^31
+    ds, order = np.divmod(np.sort(depth[ids] * n + ids), max(n, 1))
+    levels = int(ds[-1]) + 1 if ds.size else 0
+    bounds = np.searchsorted(ds, np.arange(levels + 1),
+                             side="left").astype(np.int64)
     long = np.zeros(0, np.int64) if long_arcs is None else \
         np.flatnonzero(d[order] >= long_arcs)
+    return order.astype(np.int64), bounds, long
+
+
+def plan_levels(g, scan, long_arcs: int | None = None) -> LevelPlan:
+    """The depth levels of ``g`` from its structure scan (CPU tensors), over
+    every node (:func:`level_order`).  Every depth from 0 to the maximum
+    holds a node (a node's parent is one level up), so a chain of
+    ``levels`` nodes is the longest.  With ``long_arcs``, ``long`` lists
+    the positions in ``order`` of the records of at least that many arcs
+    (ascending); else it is empty."""
+    order, bounds, long = level_order(scan.depth.astype(np.int64),
+                                      scan.d.astype(np.int64), None,
+                                      long_arcs)
+    offsets, bstart = csr_starts(scan)
     return LevelPlan(order=torch.from_numpy(order.astype(np.int32)),
                      bounds=bounds, offsets=torch.from_numpy(offsets),
                      bstart=torch.from_numpy(bstart), m=int(offsets[-1]),
@@ -151,21 +182,29 @@ class Planned:
         return dict(m=self.m, nblocks=self.nblocks)
 
 
-def planned_fields(g, device, plan: LevelPlan) -> dict:
-    """The fields of :class:`Planned` for ``g`` and its plan."""
+def graph_fields(g, device, offsets, bstart) -> dict:
+    """The per-graph fields of :class:`Planned`, whatever records a plan
+    lists: the stream, bit offsets, CSR offsets and block starts
+    (``offsets``, ``bstart``: int64 prefix sums, NumPy or CPU tensors) on
+    ``device``, the coding key and the sizes on the host."""
     device = torch.device(device)
+    offsets, bstart = torch.as_tensor(offsets), torch.as_tensor(bstart)
     return dict(
         device=device,
         words=stream_words(g, device),
         bo=torch.from_numpy(np.asarray(g.bit_offsets, np.int64)).to(device),
-        order=plan.order.to(device),
-        bounds=plan.bounds,
-        offsets=plan.offsets.to(device),
+        offsets=offsets.to(device),
         skey=coding_key(g.settings),
-        bstart=plan.bstart.to(device),
-        m=plan.m,
-        nblocks=plan.nblocks,
+        bstart=bstart.to(device),
+        m=int(offsets[-1]),
+        nblocks=int(bstart[-1]),
     )
+
+
+def planned_fields(g, device, plan: LevelPlan) -> dict:
+    """The fields of :class:`Planned` for ``g`` and its plan."""
+    return dict(graph_fields(g, device, plan.offsets, plan.bstart),
+                order=plan.order.to(device), bounds=plan.bounds)
 
 
 def check_errors(err: torch.Tensor, order: torch.Tensor) -> None:
@@ -183,13 +222,16 @@ def check_inputs(fn, words, bo, order, bounds, offsets, skey, bstart, *,
                  m, nblocks):
     """Raise ``ValueError`` where a wrapper's inputs are not what its
     kernels take; shapes and host values only, so nothing waits for the
-    card."""
+    card.  ``bo``, ``offsets`` and ``bstart`` cover the graph's n nodes;
+    ``order`` lists the records to decode, at most n of them (a subset
+    when a batch of queries decodes its ancestor closure)."""
     dev = words.device
     for c in skey[:5]:
         P.make_window_reader(c, skey[5])  # rejects GOLOMB / NIBBLE
     if skey[6] > MAX_WINDOW:
         raise ValueError(f"{fn} supports window_size <= {MAX_WINDOW}")
-    n = order.numel()
+    n = max(bo.numel() - 1, 0)
+    k = order.numel()
 
     def need(name, t, dtype, shape):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
@@ -199,12 +241,16 @@ def check_inputs(fn, words, bo, order, bounds, offsets, skey, bstart, *,
 
     need("words", words, torch.int64, (words.numel(),))
     need("bo", bo, torch.int64, (n + 1,))
-    need("order", order, torch.int32, (n,))
+    need("order", order, torch.int32, (k,))
     need("offsets", offsets, torch.int64, (n + 1,))
     need("bstart", bstart, torch.int64, (n + 1,))
-    if bounds.ndim != 1 or bounds[0] != 0 or bounds[-1] != n \
+    if k > n:
+        raise ValueError(f"{fn}: order lists {k} records of a graph of {n} "
+                         f"nodes")
+    if bounds.ndim != 1 or bounds[0] != 0 or bounds[-1] != k \
             or (np.diff(bounds) < 0).any():
-        raise ValueError(f"{fn}: bounds must rise from 0 to n")
+        raise ValueError(f"{fn}: bounds must rise from 0 to the length of "
+                         f"order")
     if m < 0 or nblocks < 0:
         raise ValueError(f"{fn}: m and nblocks must be sizes")
 
@@ -312,7 +358,7 @@ class Parsed(NamedTuple):
     ext: torch.Tensor   # int32 (m,): x's extras at offsets[x] .., else 0
     bend: torch.Tensor  # int32 (bstart[n],): x's block ends at bstart[x] ..
     ref: torch.Tensor   # int32 (n,): x's reference, 0 where it has none
-    err: torch.Tensor   # int32 (n,), indexed like order
+    err: torch.Tensor   # int32, indexed like order
 
 
 def code_starts_plain(words, start: int, count: int, coding: int, k: int = 0,
@@ -368,12 +414,16 @@ def code_starts_plain(words, start: int, count: int, coding: int, k: int = 0,
 
 def parse_records_plain(words, bo, order, bounds, offsets, skey, bstart, *,
                         m=None, nblocks=None) -> Parsed:
-    """Plain version of ``k1_parse`` and ``k2_parse``: every record at
-    once, vectorised over all nodes, one code index per step (outdegree,
-    reference, block count, blocks, intervals, residuals).  The same
-    checks, in the same order, as the kernels: invalid code, outdegree
-    against ``offsets``, reference beyond the window, reference against the
-    depth plan (depth 0 exactly when there is none), block count against
+    """Plain version of ``k1_parse`` and ``k2_parse``: the records of the
+    nodes ``order`` lists (every node, or a subset such as a batch's
+    ancestor closure) at once, vectorised over them, one code index per
+    step (outdegree, reference, block count, blocks, intervals, residuals).
+    Nothing is read or written for a node not listed, and the outputs
+    indexed by node id cover the graph (``bo.numel() - 1`` nodes), as the
+    kernels index them.  The same checks, in the same order, as the
+    kernels: invalid code, outdegree against ``offsets``, reference beyond
+    the window, reference against the depth plan (depth 0, a position
+    before ``bounds[1]``, exactly when there is none), block count against
     ``bstart``, blocks past the parent's list, intervals past the extras,
     a residual equal to an interval value."""
     outd_c, ref_c, bcnt_c, blk_c, res_c, zk, window, minint = skey
@@ -385,24 +435,29 @@ def parse_records_plain(words, bo, order, bounds, offsets, skey, bstart, *,
     readers = {cd: P.make_window_reader(cd, zk)
                for cd in {outd_c, ref_c, bcnt_c, blk_c, C.GAMMA, res_c}}
     i64 = dict(dtype=torch.int64, device=dev)
-    x = torch.arange(n, **i64)
-    err = torch.zeros(n, **i64)
+    # every per-record array below is indexed by position in order; x maps
+    # a position to its node id
+    x = order.long()
+    nrec = x.numel()
+    at = torch.arange(nrec, **i64)
+    err = torch.zeros(nrec, **i64)
 
     def flag(idx, bad, code):
         i = idx[bad]
         err[i] = torch.where(err[i] == 0, code, err[i])
 
     def read(idx, pos, coding):
-        """One code at each cursor; flags bad codes on nodes ``idx``."""
+        """One code at each cursor; flags bad codes on positions ``idx``."""
         hi, lo = P.window_at(w32, pos.clamp(0, nbits))
         v, ln = readers[coding](hi, lo)
         flag(idx, (ln > 64) | (pos + ln > nbits), ERR_CODE)
         return v, pos + ln
 
     def lockstep(idx, pos, counts, coding, per=1):
-        """Read ``per`` codes for each of ``counts[i]`` items of node
-        ``idx[i]``, item k of every node in step k.  Returns the codes
-        (``per`` flat arrays in node-major item order) and the cursors."""
+        """Read ``per`` codes for each of ``counts[i]`` items of position
+        ``idx[i]``, item k of every record in step k.  Returns the codes
+        (``per`` flat arrays in record-major item order) and the
+        cursors."""
         out = [torch.zeros(int(counts.sum()), **i64) for _ in range(per)]
         if not out[0].numel():
             return out, pos
@@ -419,27 +474,27 @@ def parse_records_plain(words, bo, order, bounds, offsets, skey, bstart, *,
                 out[j][start[a] + k] = v
         return out, pos
 
-    d, pos = read(x, bo[:n], outd_c)
-    dx = offsets[1:] - offsets[:-1]
-    flag(x, d != dx, ERR_COUNT)
-    ref = torch.zeros(n, **i64)
+    d, pos = read(at, bo[x], outd_c)
+    dx = offsets[x + 1] - offsets[x]
+    flag(at, d != dx, ERR_COUNT)
+    ref = torch.zeros(nrec, **i64)
     if window > 0:
         idx = torch.nonzero(d > 0).flatten()
         ref[idx], pos[idx] = read(idx, pos[idx], ref_c)
     hasr = ref > 0
-    flag(x, hasr & ((ref > window) | (ref > x)), ERR_REF)
-    depth0 = torch.zeros(n, dtype=torch.bool, device=dev)
-    depth0[order[:int(bounds[1]) if len(bounds) > 1 else n].long()] = True
-    flag(x, depth0 == hasr, ERR_PLAN)
+    flag(at, hasr & ((ref > window) | (ref > x)), ERR_REF)
+    depth0 = at < (int(bounds[1]) if len(bounds) > 1 else nrec)
+    flag(at, depth0 == hasr, ERR_PLAN)
     parent = torch.where(hasr, (x - ref).clamp(min=0), x)
-    dp = torch.where(hasr, dx[parent].clamp(min=0), 0)
+    dp = torch.where(hasr, (offsets[parent + 1] - offsets[parent]).clamp(
+        min=0), 0)
 
     # copy blocks: the first as is, later ones + 1; even blocks copy
     ridx = torch.nonzero(hasr).flatten()
-    bc = torch.zeros(n, **i64)
+    bc = torch.zeros(nrec, **i64)
     bc[ridx], pos[ridx] = read(ridx, pos[ridx], bcnt_c)
-    nbc = bstart[1:] - bstart[:-1]
-    flag(x, hasr & (bc != nbc), ERR_COUNT)
+    nbc = bstart[x + 1] - bstart[x]
+    flag(at, hasr & (bc != nbc), ERR_COUNT)
     (blk,), pos[ridx] = lockstep(ridx, pos[ridx], bc[ridx], blk_c)
     bseg, bk = _segments(bc[ridx])
     blk = blk + (bk > 0)
@@ -447,36 +502,36 @@ def parse_records_plain(words, bo, order, bounds, offsets, skey, bstart, *,
     ends = _seg_cumsum(blk, bseg, bc[ridx])
     bend = torch.zeros(nblocks, dtype=torch.int32, device=dev)
     okb = (bc == nbc)[bnode]
-    bend[(bstart[bnode] + bk)[okb]] = ends[okb].to(torch.int32)
-    cum = torch.zeros(n, **i64).index_add_(0, bnode, blk)
-    flag(x, hasr & (cum > dp), ERR_COUNT)
-    copied = torch.zeros(n, **i64).index_add_(0, bnode, blk * (bk % 2 == 0))
+    bend[(bstart[x[bnode]] + bk)[okb]] = ends[okb].to(torch.int32)
+    cum = torch.zeros(nrec, **i64).index_add_(0, bnode, blk)
+    flag(at, hasr & (cum > dp), ERR_COUNT)
+    copied = torch.zeros(nrec, **i64).index_add_(0, bnode, blk * (bk % 2 == 0))
     copied += torch.where(hasr & (bc % 2 == 0), (dp - cum).clamp(min=0), 0)
     extra = torch.where(d > 0, d - copied, 0)
-    flag(x, extra < 0, ERR_COUNT)
+    flag(at, extra < 0, ERR_COUNT)
     extra = extra.clamp(min=0)
 
     # intervals: first left = x + nat2int(v), later prev end + 1 + v
     ivals = torch.zeros(0, **i64)
     inode = torch.zeros(0, **i64)
-    iarcs = torch.zeros(n, **i64)
+    iarcs = torch.zeros(nrec, **i64)
     if minint != 0:
         eidx = torch.nonzero(extra > 0).flatten()
-        icnt = torch.zeros(n, **i64)
+        icnt = torch.zeros(nrec, **i64)
         icnt[eidx], pos[eidx] = read(eidx, pos[eidx], C.GAMMA)
         (lcode, lncode), pos[eidx] = lockstep(eidx, pos[eidx], icnt[eidx],
                                               C.GAMMA, per=2)
         iseg, ik = _segments(icnt[eidx])
         ilen = lncode + minint
         prev_len = torch.cat([torch.zeros(1, **i64), ilen[:-1]])
-        gap = torch.where(ik == 0, eidx[iseg] + P.nat2int_u(lcode),
+        gap = torch.where(ik == 0, x[eidx[iseg]] + P.nat2int_u(lcode),
                           prev_len + 1 + lcode)
         left = _seg_cumsum(gap, iseg, icnt[eidx])
         iarcs.index_add_(0, eidx[iseg], ilen)
         aseg, ak = _segments(ilen)
         ivals = left[aseg] + ak
         inode = eidx[iseg][aseg]
-        flag(x, iarcs > extra, ERR_COUNT)
+        flag(at, iarcs > extra, ERR_COUNT)
 
     # residuals: first x + nat2int(v), later prev + 1 + v
     rc = (extra - iarcs).clamp(min=0)
@@ -497,11 +552,12 @@ def parse_records_plain(words, bo, order, bounds, offsets, skey, bstart, *,
         rcode[s0:s0 + starts.numel()] = readers[res_c](
             *P.window_at(w32, starts))[0]
     rseg, rk = _segments(rc[cidx])
-    rgap = torch.where(rk == 0, cidx[rseg] + P.nat2int_u(rcode), rcode + 1)
+    rgap = torch.where(rk == 0, x[cidx[rseg]] + P.nat2int_u(rcode),
+                       rcode + 1)
     rvals = _seg_cumsum(rgap, rseg, rc[cidx])
     rnode = cidx[rseg]
 
-    # every node's extras, ascending, at its CSR offset; a residual that
+    # every record's extras, ascending, at its CSR offset; a residual that
     # equals an interval value fails the node
     enode = torch.cat([inode, rnode])
     evals = torch.cat([ivals, rvals])
@@ -509,36 +565,41 @@ def parse_records_plain(words, bo, order, bounds, offsets, skey, bstart, *,
     enode, evals = enode[perm], evals[perm]
     flag(enode[1:], (enode[1:] == enode[:-1]) & (evals[1:] == evals[:-1]),
          ERR_COUNT)
-    ecnt = torch.bincount(enode, minlength=n)
+    ecnt = torch.bincount(enode, minlength=nrec)
     ek = torch.arange(enode.numel(), device=dev) - (
         torch.cumsum(ecnt, 0) - ecnt)[enode]
     inb = ek < dx[enode]
     ext = torch.zeros(m, dtype=torch.int32, device=dev)
-    ext[(offsets[enode] + ek)[inb]] = evals[inb].to(torch.int32)
-    return Parsed(ext, bend, ref.to(torch.int32),
-                  err[order.long()].to(torch.int32))
+    ext[(offsets[x[enode]] + ek)[inb]] = evals[inb].to(torch.int32)
+    refs = torch.zeros(n, dtype=torch.int32, device=dev)
+    refs[x] = ref.to(torch.int32)
+    return Parsed(ext, bend, refs, err.to(torch.int32))
 
 
 def resolve_copies_plain(parsed: Parsed, order, bounds, offsets, bstart, *,
                          m=None):
-    """Plain version of ``k2_resolve``, one chain-depth level at a time.
-    Returns ``(succ, err)``, ``err`` indexed like ``order``: the parse's,
-    then a node whose parent comes no earlier in
-    ``order`` fails with ERR_PLAN, a node whose parent failed with
-    ERR_PARENT, and a node with an extra among its kept values with
-    ERR_COUNT.  A depth-0 node's list is its extras; a deeper node keeps
-    its parent's slots by the toggle rule (:func:`_kept`) and merges them
-    with its extras by rank (:func:`_merge_by_rank`)."""
+    """Plain version of ``k2_resolve``, one chain-depth level at a time,
+    over the nodes ``order`` lists (every node, or a subset whose parse
+    ``parsed`` holds).  Returns ``(succ, err)``, ``err`` indexed like
+    ``order``: the parse's, then a node whose parent comes no earlier in
+    ``order`` (or is not in it) fails with ERR_PLAN, a node whose parent
+    failed with ERR_PARENT, and a node with an extra among its kept values
+    with ERR_COUNT.  A depth-0 node's list is its extras; a deeper node
+    keeps its parent's slots by the toggle rule (:func:`_kept`) and merges
+    them with its extras by rank (:func:`_merge_by_rank`).  ``succ`` holds
+    the graph's m slots, 0 outside the lists of ``order``'s nodes."""
     ext, bend, ref, err = parsed
     dev = ext.device
-    n = order.numel()
+    n = offsets.numel() - 1
+    npos = order.numel()
     m = int(offsets[-1]) if m is None else m
     i64 = dict(dtype=torch.int64, device=dev)
     dx = offsets[1:] - offsets[:-1]
     err = err.long().clone()
     order = order.long()
-    rank = torch.empty(n, **i64)
-    rank[order] = torch.arange(n, **i64)
+    # a node's position in order; past every position when it is not there
+    rank = torch.full((n,), npos, **i64)
+    rank[order] = torch.arange(npos, **i64)
     succ = torch.zeros(m, dtype=torch.int32, device=dev)
     ref = ref.long()
     for lvl in range(len(bounds) - 1):
@@ -549,8 +610,8 @@ def resolve_copies_plain(parsed: Parsed, order, bounds, offsets, bstart, *,
             at = torch.arange(lo, hi, **i64)
             prank = rank[(nodes - ref[nodes]).clamp(0, n - 1)]
             e = torch.where((e == 0) & (prank >= at), ERR_PLAN, e)
-            e = torch.where((e == 0) & (err[prank.clamp(max=n - 1)] != 0),
-                            ERR_PARENT, e)
+            failed = err[prank.clamp(max=npos - 1)] != 0
+            e = torch.where((e == 0) & failed, ERR_PARENT, e)
             err[lo:hi] = e
         good = nodes[e == 0]
         base = offsets[good]
