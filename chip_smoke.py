@@ -90,7 +90,8 @@ def phase_device():
 
 
 KERNELS = {"decode2.cu": ("k1_parse", "k0_probe"),
-           "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe")}
+           "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe"),
+           "propagate.cu": ("or_pull",)}
 
 
 def phase_build():
@@ -877,6 +878,299 @@ def phase_query(bv, label, card, csr, scan):
     return {k: {**v, "launches": launches[k], "library_ms": None}
             for k, v in rows.items()}
 
+# the analytics phase: single-source BFS runs, NF and geometric batches of
+# 64 sources, one betweenness batch, NF sources held to host BFS sums, the
+# nodes of the web-like graph whose symmetrization SumSweep sweeps, and
+# those of the directed web-like graph it sweeps forward and backward: the
+# smallest of the generator's sizes at which SumSweep sweeps every node
+# (15,517 BFS runs; at 20,000 nodes 39,977, too long for the host path
+# that checks it)
+BFS_SOURCES = 6
+NF_BATCHES = 4
+GEO_BATCHES = 2
+BC_BATCH = 16
+NF_VS_HOST = 8
+SUMSWEEP_NODES = 20_000
+SUMSWEEP_DIRECTED_NODES = 8_000
+
+
+def _pull_bytes(n, m, perbit=False):
+    """Bytes one ``or_pull`` step must move: the in-CSR (int64 offsets,
+    int32 sources) read once, the old words read once (the gathers of
+    in-arc sources repeat them; at 8n bytes they stay in the card's L2),
+    the new ones written, the counts written."""
+    return 8 * (n + 1) + 4 * m + 2 * 8 * n + 8 * (65 if perbit else 1)
+
+
+def _trace_busy(fn):
+    """(device ms, or_pull ms of each launch) of one run of ``fn`` under
+    ``torch.profiler``, device activity only: the summed durations of its
+    kernels, copies and memsets, and of its ``or_pull`` launches.  A trace
+    that holds no device activity (the profiler dropped it) is taken
+    again, up to ``timing.TRACES`` times; then None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from webgraph_tpu_torch.timing import TRACES
+
+    for _ in range(TRACES):
+        with profile(activities=[ProfilerActivity.CUDA]) as t:
+            fn()
+            torch.cuda.synchronize()
+        dur = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+               for e in t.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dur:
+            return (sum(d for _, d in dur),
+                    [d for k, d in dur if "or_pull" in k])
+    return None, []
+
+
+def _with_plain_pull(fn):
+    """``fn()`` with ``algo.device`` stepping through ``or_pull_plain``."""
+    from webgraph_tpu_torch.algo import device as A
+    from webgraph_tpu_torch.kernels import propagate as P
+
+    A.or_pull = P.or_pull_plain
+    try:
+        return fn()
+    finally:
+        A.or_pull = P.or_pull
+
+
+def phase_analytics(bv, label, card, csr_bulk):
+    """The device transforms and analytics on the K1 cell at size, after
+    its bulk decode (``csr_bulk``, checked against the oracle): the graph
+    to the card with ``DeviceCSR.from_graph(bv)`` (``k1_parse`` 1,
+    ``k2_resolve`` 1), transpose / symmetrize / map, BFS from
+    :data:`BFS_SOURCES` nodes, :data:`NF_BATCHES` NF batches,
+    :data:`GEO_BATCHES` geometric batches, one betweenness batch, and
+    SumSweep on the symmetrized web-like graph of :data:`SUMSWEEP_NODES`
+    nodes and on the directed one of :data:`SUMSWEEP_DIRECTED_NODES`, with
+    every count reset just before and read just after.  Each is exact
+    against the host copies, or against the same function through
+    ``or_pull_plain`` on the card (or on CPU tensors, betweenness), then
+    timed: CUDA-event ms (median of 3 more runs; SumSweep's one counted
+    run), ``or_pull`` launches and ms a launch, host reads, the bound, the
+    busy share (device time in a traced run over that ms; not traced for
+    the directed SumSweep).  Returns
+    ``or_pull``'s kernel row."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu_torch.algo import device as A
+    from webgraph_tpu_torch.algo.bfs import bfs_distances as host_bfs
+    from webgraph_tpu_torch.algo.sumsweep import (
+        OutputLevel, SumSweepDirectedDiameterRadius)
+    from webgraph_tpu_torch.graph.csr import CSRGraph
+    from webgraph_tpu_torch.kernels import propagate as P
+    from webgraph_tpu_torch.synth import weblike_graph
+    from webgraph_tpu_torch.timing import cuda_ms, kernel_ms
+    from webgraph_tpu_torch.transform import device as TD
+    from webgraph_tpu_torch.transform import transform as T
+    from webgraph_tpu_torch.utils.rng import XoRoShiRo128PlusRandom
+
+    n, m = bv.num_nodes(), bv.num_arcs()
+    toff, tsucc = (t.cpu().numpy() for t in csr_bulk)
+    host = CSRGraph(toff, tsucc)
+    rng = XoRoShiRo128PlusRandom(0)
+    sources = [rng.next_int(n) for _ in range(BFS_SOURCES)]
+    perm = T.random_permutation(host, seed=0)
+    g20 = T.symmetrize(weblike_graph(SUMSWEEP_NODES))
+    gdir = weblike_graph(SUMSWEEP_DIRECTED_NODES)
+    ops = {}
+
+    def step(name, fn):
+        """``fn()`` once, timed by CUDA events, its launches and reads."""
+        pulls, reads = P.or_pull.launches, sum(A.host_reads.values())
+        out, ms = _events_ms(fn)
+        ops[name] = {"fn": fn, "ms": ms,
+                     "launches": P.or_pull.launches - pulls,
+                     "reads": sum(A.host_reads.values()) - reads}
+        return out
+
+    def sumsweep(g, use_device):
+        s = SumSweepDirectedDiameterRadius(
+            g, OutputLevel.RADIUS_DIAMETER, use_device=use_device)
+        s.compute()
+        return s.get_diameter(), s.get_radius(), s.iterations
+
+    # the analytics path, counted
+    _reset_counts()
+    P.or_pull.launches = 0
+    for k in A.host_reads:
+        A.host_reads[k] = 0
+    csr = step("from_graph", lambda: A.DeviceCSR.from_graph(bv, "cuda"))
+    c = _counts()
+    pm = torch.as_tensor(perm, device="cuda")
+    tr = step("transpose",
+              lambda: TD.transpose_arcs_device(csr.src, csr.dst, n))
+    sy = step("symmetrize",
+              lambda: TD.symmetrize_arcs_device(csr.src, csr.dst, n))
+    mp = step("map", lambda: TD.map_arcs_device(csr.src, csr.dst, pm, n))
+    dists = [step(f"bfs {s}", lambda s=s: A.bfs_distances(csr, s))
+             for s in sources]
+    nf_counts, nf_deep = step(
+        "nf", lambda: A.make_nf_batches(csr, n)(0, NF_BATCHES))
+    geo = step("geometric", lambda: A.make_geometric_batches(
+        csr, n, 0.5)(0, GEO_BATCHES))
+    bc = step("betweenness",
+              lambda: A.make_betweenness_batches(csr, n, BC_BATCH)(0))
+    ss = step("sumsweep", lambda: sumsweep(g20, True))
+    ssd = step("sumsweep directed", lambda: sumsweep(gdir, True))
+    torch.cuda.synchronize()
+    launches = P.or_pull.launches
+    reads = dict(A.host_reads)
+    c2 = _counts()
+    check(c == c2 and c["k1"] == {"k1_parse": 1, "k2_resolve": 1}
+          and not any(c["k2"].values()) and c["probes"] == 0,
+          f"{label} analytics: decode launches {c} then {c2}")
+    check(launches == sum(o["launches"] for o in ops.values()) > 0,
+          f"{label} analytics: or_pull launches {launches}")
+
+    # exact against the host copies and the plain versions
+    check(torch.equal(csr.offsets, csr_bulk[0].long())
+          and torch.equal(csr.dst, csr_bulk[1]),
+          f"{label} analytics: from_graph's CSR differs from the bulk decode")
+    for name, got, ref in (("transpose", tr, T.transpose(host)),
+                           ("symmetrize", sy, T.symmetrize(host)),
+                           ("map", mp, T.map_graph(host, perm))):
+        roff, rsucc = ref.to_csr()
+        k = int(got[2])
+        check(np.array_equal(got[0].cpu().numpy(), roff)
+              and np.array_equal(got[1][:k].cpu().numpy(), rsucc),
+              f"{label} analytics: {name} differs from the host copy")
+        ops[name]["arcs"] = k
+    check(torch.equal(csr.in_off, tr[0]) and torch.equal(csr.in_src, tr[1]),
+          f"{label} analytics: DeviceCSR's in-CSR differs from transpose")
+    for s, d in zip(sources, dists):
+        check(np.array_equal(d.cpu().numpy(), host_bfs(host, s)),
+              f"{label} analytics: BFS from {s} differs from the host copy")
+        ops[f"bfs {s}"]["levels"] = int(d.max())
+    pc, pdeep = _with_plain_pull(
+        lambda: A.make_nf_batches(csr, n)(0, NF_BATCHES))
+    check(pdeep == nf_deep and np.array_equal(pc, nf_counts),
+          f"{label} analytics: NF batches differ from or_pull_plain's")
+    few = np.arange(NF_VS_HOST)
+    counts, _, it = A.nf64(csr, few)
+    want = np.zeros(it + 1, np.int64)
+    for s in few:
+        d = host_bfs(host, int(s))
+        want += ((d[None, :] >= 0)
+                 & (d[None, :] <= np.arange(it + 1)[:, None])).sum(axis=1)
+    check(np.array_equal(counts, want),
+          f"{label} analytics: NF of {NF_VS_HOST} sources differs from "
+          f"host BFS sums")
+    pgeo = _with_plain_pull(lambda: A.make_geometric_batches(
+        csr, n, 0.5)(0, GEO_BATCHES))
+    for a, b in zip(geo, pgeo):
+        check(torch.allclose(a.double(), b.double(), rtol=1e-12, atol=0)
+              and (a.is_floating_point() or torch.equal(a, b)),
+              f"{label} analytics: geometric batches differ from plain")
+    t0 = time.perf_counter()
+    ccsr = A.DeviceCSR(toff, tsucc, n, "cpu")
+    cbc = A.make_betweenness_batches(ccsr, n, BC_BATCH)(0)
+    bc_cpu_s = time.perf_counter() - t0
+    check(torch.allclose(bc.cpu(), cbc, rtol=1e-9, atol=1e-9),
+          f"{label} analytics: betweenness batch differs from CPU tensors")
+    t0 = time.perf_counter()
+    for name, got, g in (("", ss, g20), (" directed", ssd, gdir)):
+        check(got == sumsweep(g, False),
+              f"{label} analytics: SumSweep{name} differs from the host path")
+    ss_host_s = time.perf_counter() - t0
+
+    # or_pull alone at the path's shapes: batch 0's words after 3 steps
+    words = A._batch_masks(csr, torch.arange(64, device="cuda"))
+    for _ in range(3):
+        words, _ = P.or_pull(csr.in_off, csr.in_src, words)
+    new, stats = P.or_pull(csr.in_off, csr.in_src, words, perbit=True)
+    pnew, pstats = P.or_pull_plain(csr.in_off, csr.in_src, words,
+                                   perbit=True)
+    check(torch.equal(new, pnew) and torch.equal(stats, pstats),
+          f"{label} analytics: or_pull differs from or_pull_plain")
+    err = int((stats - pstats).abs().max())
+    call_ms = cuda_ms(lambda: P.or_pull(csr.in_off, csr.in_src, words,
+                                        perbit=True), 20)
+    ms = kernel_ms(lambda: P.or_pull(csr.in_off, csr.in_src, words,
+                                     perbit=True), 20, ("or_pull",))["or_pull"]
+    plain_ms = cuda_ms(lambda: P.or_pull_plain(
+        csr.in_off, csr.in_src, words, perbit=True), 3)
+    bits = P.unpack_bits(words)
+    gathered = bits[csr.in_src.long()]
+    idx = P._in_targets(csr.in_off).unsqueeze(1).expand(-1, 64)
+    pulled = torch.zeros_like(bits)
+    library_ms = cuda_ms(
+        lambda: pulled.scatter_reduce_(0, idx, gathered, "amax"), 5)
+    del bits, gathered, idx, pulled
+    bound_ms, bound_by = _bound(_pull_bytes(n, m, True), m + n)
+
+    # bounds, busy shares, or_pull's ms a launch in the path
+    step_b = _pull_bytes(n, m)
+    # the betweenness batch's forward levels (a read each, the last finds
+    # no frontier) and its backward levels, one fewer
+    bc_levels = ops["betweenness"]["reads"]
+    bounds = {
+        "from_graph": (int(np.asarray(bv.bit_offsets)[-1]) + 7) // 8
+        + 2 * 8 * (n + 1)
+        + 3 * 4 * m,
+        "transpose": 8 * m + 8 * (n + 1) + 4 * m,
+        "symmetrize": 8 * m + 8 * (n + 1) + 4 * ops["symmetrize"]["arcs"],
+        "map": 8 * m + 8 * n + 8 * (n + 1) + 4 * ops["map"]["arcs"],
+        "nf": ops["nf"]["launches"] * step_b,
+        "geometric": ops["geometric"]["launches"] * (step_b + 64 * 8),
+        "betweenness": (bc_levels * (8 * m + 12 * BC_BATCH * n)
+                        + (bc_levels - 1) * (8 * m + 16 * BC_BATCH * n)),
+        "sumsweep": ops["sumsweep"]["launches"] * _pull_bytes(
+            g20.num_nodes(), g20.num_arcs()),
+        "sumsweep directed": ops["sumsweep directed"]["launches"]
+        * _pull_bytes(gdir.num_nodes(), gdir.num_arcs()),
+    }
+    for s in sources:
+        bounds[f"bfs {s}"] = ops[f"bfs {s}"]["launches"] * step_b
+    # SumSweep keeps its one counted run; the directed sweep's trace would
+    # hold some 10^5 launches, more than the smoke has time to read
+    for name, o in ops.items():
+        if not name.startswith("sumsweep"):
+            o["ms"] = cuda_ms(o["fn"], 3)
+        busy, pulls = None, []
+        if name != "sumsweep directed":
+            busy, pulls = _trace_busy(o["fn"])
+        b_ms, b_by = _bound(int(bounds[name]), 0)
+        extra = ""
+        if "levels" in o:
+            extra = f", levels {o['levels']}"
+        if "arcs" in o:
+            extra = f", {o['arcs']} arcs out"
+        print(f"{label} analytics {name}: {o['ms']:.4f} ms, or_pull "
+              f"{o['launches']} launches"
+              + (f" ({float(np.median(pulls)):.4f} ms a launch)"
+                 if pulls else "")
+              + f", host reads {o['reads']}{extra}, bound {b_ms:.4f} ms "
+              f"({b_by}), busy share "
+              + (f"{busy / o['ms']:.4f}" if busy is not None
+                 else "not measured") + f"; card {card}")
+    nf_ms = ops["nf"]["ms"] / NF_BATCHES
+    print(f"{label} analytics: exact vs the host copies (transforms, BFS, "
+          f"NF of {NF_VS_HOST} sources, SumSweep's diameter, radius and "
+          f"sweeps {ss} on the symmetrized {SUMSWEEP_NODES}-node web-like "
+          f"graph, {g20.num_arcs()} arcs, and {ssd} on the directed "
+          f"{SUMSWEEP_DIRECTED_NODES}-node one, {gdir.num_arcs()} arcs; "
+          f"host path {ss_host_s:.1f} s) and vs or_pull_plain "
+          f"(NF, geometric), betweenness vs CPU tensors ({bc_cpu_s:.1f} s); "
+          f"full exact NF projected from {NF_BATCHES} batches: "
+          f"{-(-n // 64)} batches x {nf_ms:.2f} ms = "
+          f"{-(-n // 64) * nf_ms / 1e3:.1f} s (projected, not run); "
+          f"host reads {reads}")
+    print(f"{label} analytics or_pull: n {n} m {m}, exact vs plain; "
+          f"{ms:.4f} ms a launch on the device ({call_ms:.4f} ms a call by "
+          f"CUDA events), bound {bound_ms:.4f} ms ({bound_by}), "
+          f"plain {plain_ms:.2f} ms, scatter_reduce(amax) over the "
+          f"unpacked bits {library_ms:.4f} ms; {launches} launches on the "
+          f"path; card {card}")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
 
 def main():
     import torch
@@ -888,30 +1182,40 @@ def main():
     import webgraph_tpu_torch  # noqa: F401  (fails outside the repo)
     from webgraph_tpu_torch.formats.bvgraph import BVGraph
 
+    start = time.perf_counter()
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     card = phase_device()
-    regs = phase_build()
-    k0 = phase_k0()
-    probe = phase_k2_probe()
+    regs = timed(phase_build)
+    k0 = timed(phase_k0)
+    probe = timed(phase_k2_probe)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_k1_small(tmp)
+        timed(phase_k1_small, tmp)
         t0 = time.perf_counter()
         bv = _cell(tmp, "weblike-cnr2000-size")
         print(f"synthetic graph: {time.perf_counter() - t0:.2f} s to make "
               f"and store")
-        k1 = phase_main(bv, "weblike-cnr2000-size", card, tmp)
-        query = phase_query(bv, "weblike-cnr2000-size", card, k1["csr"],
-                            k1["scan"])
+        k1 = timed(phase_main, bv, "weblike-cnr2000-size", card, tmp)
+        query = timed(phase_query, bv, "weblike-cnr2000-size", card,
+                      k1["csr"], k1["scan"])
+        pull = timed(phase_analytics, bv, "weblike-cnr2000-size", card,
+                     k1["csr"])
         if os.path.exists(CNR2000 + ".graph"):
             phase_main(BVGraph.load(CNR2000), "cnr-2000", card, tmp)
         else:
             print(f"cnr-2000: skipped ({CNR2000}.graph not present)")
-        phase_k2_small(tmp)
+        timed(phase_k2_small, tmp)
         label = "weblike-cnr2000-size-maxref-inf"
         bv = _cell(tmp, label)
-        k2 = phase_k2_main(bv, label, card)
-        phase_query(bv, label, card, k2["csr"], k2["scan"])
+        k2 = timed(phase_k2_main, bv, label, card)
+        timed(phase_query, bv, label, card, k2["csr"], k2["scan"])
         label = "deep-chain-config3-minint2"
-        phase_k2_main(_cell(tmp, label), label, card)
+        timed(phase_k2_main, _cell(tmp, label), label, card)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "webgraph_tpu"))
     check(not leaked, f"the port imported JAX or webgraph_tpu: {leaked[:5]}")
@@ -955,7 +1259,13 @@ def main():
             "scripts/pallas_compact_chip.py:60",
             {**probe, "launches": k2r["launches"]},
             inlined_in=["k2_resolve"]),
+        {**row("or_pull", "webgraph_tpu_torch/csrc/propagate.cu",
+               "webgraph_tpu/algo/device.py:118", pull,
+               note="no pallas_call: takes the place of the XLA "
+                    "segmented-OR scan _seg_or_scan and its callers"),
+         "library_ms": pull["library_ms"]},
     ]
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

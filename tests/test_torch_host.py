@@ -213,3 +213,115 @@ def test_weblike_graph_is_unchanged_without_big_sites():
     assert a.num_nodes() == 20_000
     np.testing.assert_array_equal(a.succ, b.succ)
     assert a.num_arcs() != weblike_graph(20_000, seed=0).num_arcs()
+
+
+# ----------------------------------------------------------------------
+# the analytics' host copies: transform/transform.py, algo/bfs.py, nf.py,
+# components.py, centralities.py, sumsweep.py
+# ----------------------------------------------------------------------
+
+_SAME_SOURCE = ("transform/transform.py", "algo/bfs.py", "algo/nf.py",
+                "algo/components.py")
+
+
+@pytest.mark.parametrize("rel", _SAME_SOURCE)
+def test_analytics_copies_differ_only_in_imports(rel):
+    """These copies are their originals with the package name changed."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    orig = open(os.path.join(here, "webgraph_tpu", rel)).read()
+    copy = open(os.path.join(here, "webgraph_tpu_torch", rel)).read()
+    assert copy == orig.replace("webgraph_tpu.", "webgraph_tpu_torch.")
+
+
+def _both(n, p, seed):
+    return (PMG.erdos_renyi(n, p, seed=seed), JMG.erdos_renyi(n, p, seed=seed))
+
+
+def _same_csr(a, b):
+    for x, y in zip(a.to_csr(), b.to_csr()):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_transform_copy_matches(seed):
+    from webgraph_tpu.transform import transform as JT
+    from webgraph_tpu_torch.transform import transform as PT
+
+    pg, jg = _both(200, 0.03, seed)
+    perm = np.random.default_rng(seed).permutation(200)
+    perm[::9] = -1
+    for f in ("transpose", "symmetrize", "simplify", "remove_dangling"):
+        _same_csr(getattr(PT, f)(pg), getattr(JT, f)(jg))
+    _same_csr(PT.map_graph(pg, perm), JT.map_graph(jg, perm))
+    _same_csr(PT.transpose_offline(pg, batch_size=97),
+              JT.transpose_offline(jg, batch_size=97))
+    for f in ("gray_code_permutation", "lexicographical_permutation",
+              "random_permutation"):
+        np.testing.assert_array_equal(getattr(PT, f)(pg), getattr(JT, f)(jg))
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_bfs_nf_components_copies_match(seed):
+    from webgraph_tpu.algo import bfs as JB
+    from webgraph_tpu.algo import components as JCo
+    from webgraph_tpu.algo import nf as JN
+    from webgraph_tpu_torch.algo import bfs as PB
+    from webgraph_tpu_torch.algo import components as PCo
+    from webgraph_tpu_torch.algo import nf as PN
+
+    pg, jg = _both(250, 0.01, seed)
+    for s in (0, 7, [3, 100]):
+        np.testing.assert_array_equal(PB.bfs_distances(pg, s),
+                                      JB.bfs_distances(jg, s))
+    pv, jv = PB.ParallelBreadthFirstVisit(pg), JB.ParallelBreadthFirstVisit(jg)
+    pv.visit_all()
+    jv.visit_all()
+    assert pv.queue == jv.queue and pv.cut_points == jv.cut_points
+    np.testing.assert_array_equal(pv.marker, jv.marker)
+    np.testing.assert_array_equal(PN.NeighbourhoodFunction.compute(pg),
+                                  JN.NeighbourhoodFunction.compute(jg))
+    np.testing.assert_array_equal(
+        PCo.StronglyConnectedComponents.compute(pg).component,
+        JCo.StronglyConnectedComponents.compute(jg).component)
+    np.testing.assert_array_equal(
+        PCo.ConnectedComponents.compute(pg).component,
+        JCo.ConnectedComponents.compute(jg).component)
+
+
+def test_centralities_and_sumsweep_copies_match():
+    """The host paths (use_device False) of the two copies that differ from
+    their originals in their device branches."""
+    from webgraph_tpu.algo import centralities as JCe
+    from webgraph_tpu.algo import sumsweep as JS
+    from webgraph_tpu_torch.algo import centralities as PCe
+    from webgraph_tpu_torch.algo import sumsweep as PS
+
+    pg, jg = _both(150, 0.03, 5)
+    p, j = (PCe.GeometricCentralities(pg, 0.4).compute(),
+            JCe.GeometricCentralities(jg, 0.4).compute())
+    for f in ("closeness", "harmonic", "lin", "exponential", "reachable"):
+        np.testing.assert_array_equal(getattr(p, f), getattr(j, f))
+    np.testing.assert_array_equal(
+        PCe.BetweennessCentrality(pg).compute().betweenness,
+        JCe.BetweennessCentrality(jg).compute().betweenness)
+    c = np.array([0.0, 1.0, 0.5, 0.25])
+    np.testing.assert_array_equal(
+        PCe.LinearGeometricCentrality(pg, c).compute().centrality,
+        JCe.LinearGeometricCentrality(jg, c).compute().centrality)
+    for kind in ("HARMONIC", "LIN"):
+        a = PCe.TopKGeometricCentrality.compute(pg, 5, kind)
+        b = JCe.TopKGeometricCentrality.compute(jg, 5, kind)
+        np.testing.assert_array_equal(a.top_k, b.top_k)
+    for out in (PS.OutputLevel.RADIUS_DIAMETER, PS.OutputLevel.ALL):
+        a = PS.SumSweepDirectedDiameterRadius(pg, out)
+        b = JS.SumSweepDirectedDiameterRadius(jg, JS.OutputLevel(out.value))
+        a.compute()
+        b.compute()
+        assert (a.get_diameter(), a.get_radius()) == \
+            (b.get_diameter(), b.get_radius())
+    u = PS.SumSweepUndirectedDiameterRadius(pg)
+    v = JS.SumSweepUndirectedDiameterRadius(jg)
+    u.compute()
+    v.compute()
+    assert (u.get_diameter(), u.get_radius()) == \
+        (v.get_diameter(), v.get_radius())

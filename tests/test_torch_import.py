@@ -30,7 +30,10 @@ names = [m.name for m in pkgutil.walk_packages(webgraph_tpu_torch.__path__,
                                                "webgraph_tpu_torch.")]
 for name in names:
     __import__(name)
-for name in ("bits.bitstream", "bits.codes", "bits.vcodes", "bits.elias_fano",
+for name in ("algo.bfs", "algo.centralities", "algo.components", "algo.device",
+             "algo.nf", "algo.sumsweep", "kernels.propagate",
+             "transform.device", "transform.transform",
+             "bits.bitstream", "bits.codes", "bits.vcodes", "bits.elias_fano",
              "graph.builders", "graph.csr", "graph.immutable_graph",
              "graph.properties", "formats.bvgraph", "formats.bvgraph_np",
              "kernels._build", "kernels.decode", "kernels.decode2",
@@ -61,7 +64,7 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
-    assert set(_build.SOURCES) == {"decode2.cu", "decode.cu"}
+    assert set(_build.SOURCES) == {"decode2.cu", "decode.cu", "propagate.cu"}
     paths = [_build.library_path(s) for s in _build.SOURCES]
     assert len(set(paths)) == len(paths)  # one library per source
     for src, path in zip(_build.SOURCES, paths):
@@ -79,8 +82,11 @@ def test_cpu_tensors_launch_nothing(tmp_path):
     from webgraph_tpu_torch.kernels import pcodes as P
     from webgraph_tpu_torch.synth import deep_chain_graph
 
+    from webgraph_tpu_torch.algo import device as AD
+    from webgraph_tpu_torch.kernels.propagate import or_pull
+
     counts = (sum(D2.decode_records.counts.values()), P.probe.launches,
-              sum(K2.decode_levels.counts.values()))
+              sum(K2.decode_levels.counts.values()), or_pull.launches)
     for g, kw in ((MutableGraph.erdos_renyi(120, 0.05, seed=3), {}),
                   (deep_chain_graph(1200), dict(max_ref_count=2**31 - 1,
                                                 min_interval_length=2))):
@@ -92,8 +98,11 @@ def test_cpu_tensors_launch_nothing(tmp_path):
         np.testing.assert_array_equal(succ, tsucc)
     words = torch.zeros(4, dtype=torch.int64)
     P.probe(words, torch.zeros(3, dtype=torch.int64), C.GAMMA)
+    csr = AD.DeviceCSR.from_graph(wgt.load(base), "cpu")
+    AD.bfs_distances(csr, 0)
+    AD.nf64(csr, [0, 1])
     assert (sum(D2.decode_records.counts.values()), P.probe.launches,
-            sum(K2.decode_levels.counts.values())) == counts
+            sum(K2.decode_levels.counts.values()), or_pull.launches) == counts
 
 
 @pytest.mark.parametrize("entry", ["decode_to_csr", "to_csr", "prepare",
@@ -110,6 +119,24 @@ def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert inspect.signature(F.BVGraph.to_csr).parameters[
         "device"].default == "cuda"
+
+
+@pytest.mark.parametrize("entry", [
+    "transform.device.transpose_device", "transform.device.map_device",
+    "transform.device.symmetrize_device", "transform.device.graph_csr",
+    "algo.device.DeviceCSR", "algo.device.DeviceCSR.from_graph",
+    "algo.centralities.GeometricCentralities",
+    "algo.centralities.BetweennessCentrality",
+    "algo.sumsweep.SumSweepDirectedDiameterRadius"])
+def test_analytics_entry_points_default_to_the_card(entry):
+    import importlib
+    import inspect
+
+    parts = entry.split(".")
+    obj = importlib.import_module("webgraph_tpu_torch." + ".".join(parts[:2]))
+    for a in parts[2:]:
+        obj = getattr(obj, a)
+    assert inspect.signature(obj).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("cuda_present,codings,on_card", [

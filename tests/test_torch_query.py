@@ -283,6 +283,15 @@ def test_speed_test_counts_the_oracles_arcs(tmp_path):
     assert s["links"] == bv.num_arcs()
 
 
+def test_speed_test_sequential_runs_with_its_defaults(tmp_path):
+    """With the default device ("cuda") the sequential test runs on a host
+    with or without a card: ``to_csr`` takes the host codec where no card
+    is present, and the clock synchronises only a card that is there."""
+    bv = _stored("er_default", tmp_path)
+    s = SpeedTest.sequential(bv, warmup=0, repeat=1)
+    assert s["links"] == bv.num_arcs() and s["seconds"] > 0
+
+
 # ----------------------------------------------------------------------
 # on the card
 # ----------------------------------------------------------------------

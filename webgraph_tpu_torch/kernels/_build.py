@@ -62,6 +62,10 @@ _SIGNATURES = {
         # vals, cnt, qpos, lanes, depth, pool, q, stream
         "wgt_k2_compact_probe": (_P, _P, _P, _I, _I, _P, _P, _P),
     },
+    "propagate.cu": {
+        # in_off, in_src, n, old, new, stats, perbit, dist, level, stream
+        "wgt_or_pull": (_P, _P, _L, _P, _P, _P, _I, _P, _I, _P),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

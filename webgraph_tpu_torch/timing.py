@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import statistics
 
+TRACES = 3  # traces kernel_runs takes before it gives up
+
 
 def cuda_ms(fn, reps):
     """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
@@ -29,29 +31,33 @@ def kernel_runs(fn, reps, names):
     into runs at the launches of ``names[0]`` (one a run): a list of the
     runs whose share of the trace shows every launch, each a dict from the
     kernel names of ``names`` to the (start, end) of their one launch in
-    microseconds.  A run whose records the trace dropped is left out;
-    raises if every run is."""
+    microseconds.  A run whose records the trace dropped is left out; a
+    trace that shows no whole run is taken again, up to :data:`TRACES`
+    times, then this raises."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
-    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as t:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-    spans = {name: sorted((e.time_range.start, e.time_range.end)
-                          for e in t.events() if name in e.name)
-             for name in names}
-    starts = [s for s, _ in spans[names[0]]] + [float("inf")]
-    runs = []
-    for a, b in zip(starts[:-1], starts[1:]):
-        run = {k: [x for x in v if a <= x[0] < b] for k, v in spans.items()}
-        if all(len(v) == 1 for v in run.values()):
-            runs.append({k: v[0] for k, v in run.items()})
-    if not runs:
-        raise RuntimeError(f"no run of {reps} shows every launch of {names} "
-                           f"in the trace")
-    return runs
+    for _ in range(TRACES):
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as t:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        spans = {name: sorted((e.time_range.start, e.time_range.end)
+                              for e in t.events() if name in e.name)
+                 for name in names}
+        starts = [s for s, _ in spans[names[0]]] + [float("inf")]
+        runs = []
+        for a, b in zip(starts[:-1], starts[1:]):
+            run = {k: [x for x in v if a <= x[0] < b]
+                   for k, v in spans.items()}
+            if all(len(v) == 1 for v in run.values()):
+                runs.append({k: v[0] for k, v in run.items()})
+        if runs:
+            return runs
+    raise RuntimeError(f"no run of {reps} shows every launch of {names} "
+                       f"in {TRACES} traces")
 
 
 def kernel_ms(fn, reps, names):

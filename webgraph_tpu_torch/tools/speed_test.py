@@ -25,8 +25,9 @@ BATCH = 1024  # queries a batch: the reference's lane count, for comparison
 
 
 def _clock(device):
-    """A clock that first waits for ``device`` when it is a CUDA device."""
-    if torch.device(device).type == "cuda":
+    """A clock that first waits for ``device`` when it is a CUDA device and
+    a card is present (without one, ``to_csr`` decodes on the host)."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
         def read():
             torch.cuda.synchronize(device)
             return time.perf_counter()
