@@ -3,8 +3,10 @@
 
 Drives the port's main path, bulk BVGraph decode into CSR, on the card,
 through its two routes (K1 for reference chains that reach back at most
-256 nodes, K2 for longer ones), and batched random access through K1's
-kernels, using only the port's own modules:
+256 nodes, K2 for longer ones), batched random access through K1's
+kernels, the analytics on the decoded graph, and the probe path (the
+fragment probes on the TPU probe scripts' inputs), using only the port's
+own modules:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the CUDA kernels from ``webgraph_tpu_torch/csrc``;
@@ -31,27 +33,37 @@ kernels, using only the port's own modules:
 6. K2's warp compaction: ``k2_compact_probe`` (the helper that
    ``k2_resolve`` compacts with) on the inputs of the JAX package's
    ``scripts/pallas_compact_chip.py``, exactly against NumPy, timed;
-7. K2 small: ``k2_parse`` against ``parse_records_plain`` (every slot it
+7. the fragment probes (``webgraph_tpu_torch/probes``, the counterparts of
+   the JAX package's ``scripts/pallas_winmach_chip.py``,
+   ``pallas_probe.py``, ``pallas_composite_probe.py``,
+   ``pallas_fetch_bench.py`` and ``pallas_onehot_probe.py``): each
+   module's ``run("cuda")`` on the script's inputs and on-chip sizes with
+   the launch counts reset just before and read just after, then each of
+   the eight probe kernels and K0's γ route exactly against its plain
+   version (the composite ones at 2,048 trips), timed;
+8. K2 small: ``k2_parse`` against ``parse_records_plain`` (every slot it
    writes), the decode (``k2_parse`` then ``k2_resolve``) against the plain
    decoder and the oracle, exactly, on the graph set of
    tests/test_pallas_decode.py and config 3's deep-chain graph stored with
    unbounded maxref at minint 0, 4, 8;
-8. K2 at size, ``weblike-cnr2000-size-maxref-inf``: the web-like graph with
+9. K2 at size, ``weblike-cnr2000-size-maxref-inf``: the web-like graph with
    0.5% of its sites 300-3,000 pages long, stored with unbounded maxref,
    through the public entry point with the counters reset (``k2_parse`` and
    ``k2_resolve`` launched once each, K1 not), checked against the oracle
    and the plain versions of both kernels, then timed (each kernel's device
    time from ``torch.profiler``);
-9. K2 stress, ``deep-chain-config3-minint2``: the same on config 3's graph
+10. K2 stress, ``deep-chain-config3-minint2``: the same on config 3's graph
    at minint 2, whose chains run 17,819 deep;
-10. batched random access (``kernels/query2.QueryPlanner``), after phases
-   5 and 8 on their graphs: batches of 1, 16, 64, 1,024 and 16,384 nodes
+11. batched random access (``kernels/query2.QueryPlanner``), after phases
+   5 and 9 on their graphs: batches of 1, 16, 64, 1,024 and 16,384 nodes
    drawn by ``utils.rng.XoRoShiRo128PlusRandom(0)``, each
    ``successors_batch`` counted from 0 (``k1_parse`` and ``k2_resolve``
    once each through K1's wrapper, K2's wrapper not, over the batch's
    ancestor closure), exact against the bulk decode's CSR, then timed (host
    plan, each kernel, the batch, ns a node); the 1,024 batch's kernels
-   held to their plain versions on the same closure.
+   held to their plain versions on the same closure;
+12. the analytics on the K1 cell after its query phase
+   (``phase_analytics``).
 
 It prints a JSON line of per-kernel results and, last, a JSON line with the
 device.  Any failure raises, so the exit code is not 0 and no last line is
@@ -62,6 +74,7 @@ printed.  Without a CUDA device it fails at once.
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -89,9 +102,20 @@ def phase_device():
     return card
 
 
+# the TPU kernel each probe kernel replaces (the kernel's definition)
+PROBE_REPLACES = {
+    "probe_winmach": "scripts/pallas_winmach_chip.py:47",
+    "probe_relayout": "scripts/pallas_composite_probe.py:49",
+    "probe_merge_trip": "scripts/pallas_composite_probe.py:70",
+    "probe_refill": "scripts/pallas_composite_probe.py:117",
+    "probe_compaction": "scripts/pallas_composite_probe.py:158",
+    "probe_page_fetch": "scripts/pallas_composite_probe.py:213",
+    "probe_fetch": "scripts/pallas_fetch_bench.py:31",
+    "probe_row_gather": "scripts/pallas_onehot_probe.py:30"}
 KERNELS = {"decode2.cu": ("k1_parse", "k0_probe"),
            "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe"),
-           "propagate.cu": ("or_pull",)}
+           "propagate.cu": ("or_pull",),
+           "probes.cu": tuple(PROBE_REPLACES)}
 
 
 def phase_build():
@@ -577,6 +601,197 @@ def phase_k2_probe():
           f"{bound_ms:.6f} ms, plain {plain_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# composite trips at which phase_probes holds the kernels to their plain
+# versions (a plain loop of 2**17 torch steps would take minutes)
+PROBE_TRIPS = 2048
+# integer operations a lane a trip (a rep) of each composite kernel, for its
+# bound: G one add; H the trip's ~30 (csrc/probes.cu); I the page index,
+# alignment, four byte loads and the word; J two a word of the lane's
+# 128-word row (the byte-wise add, the carry); K one add a fetched word
+PROBE_OPS = {"G": 1, "H": 30, "I": 12, "J": 2 * 128, "K": 128}
+
+
+def _max_err(got, want):
+    """Max |got - want| over two tuples of tensors of equal shapes."""
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        check(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def _probe_bytes(name, arrays):
+    """Bytes a composite run must move: its inputs read once, its outputs
+    written once (H: out, the queue's 8 rows, the 128-row slab; J: out and
+    the pool; K: out and the checksum)."""
+    tile = 4 * 1024
+    ins = sum(a.nbytes for a in arrays)
+    return ins + {"G": tile, "H": tile + 8 * tile + 128 * tile, "I": tile,
+                  "J": tile + 512 * (int(name[1:]) if name[0] == "J" else 0),
+                  "K": 2 * tile}[name[0]]
+
+
+def phase_probes():
+    """The fragment probes (``webgraph_tpu_torch/probes``, the counterparts
+    of the JAX package's ``scripts/pallas_winmach_chip.py``,
+    ``pallas_probe.py``, ``pallas_composite_probe.py``,
+    ``pallas_fetch_bench.py`` and ``pallas_onehot_probe.py``) on the
+    scripts' own inputs and on-chip sizes (composite ``TRIPS`` 2**17, fetch
+    ``K`` 512, 1,024 lanes x 8 ζ₃ codes, 4,096 γ codes, 256 x 128
+    gathers).  The probe path is each module's ``run("cuda")``, the entry
+    point of ``python -m webgraph_tpu_torch.probes.<name>``, with every
+    launch count reset just before and read just after; each checks its
+    result (the written codes, ``T[idx]``, the plain fetch sum) and times
+    its kernels by CUDA events (median of 5 after a warm-up).  Then each
+    kernel is held to its plain version on the same inputs, exactly: at
+    full size for B.1, B.2, B.4 and B.5, and for the composite kernels at
+    :data:`PROBE_TRIPS` trips, since a plain loop of 2**17 trips of torch
+    operations would take minutes (their ``plain_ms`` is at that size: each
+    row gives ``reps``, the loop count of its ``ms``, and ``plain_reps``).
+    Returns each kernel's row, and the γ route of ``k0_pcodes`` under
+    ``"gamma"``."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu_torch.bits import codes as C
+    from webgraph_tpu_torch.kernels import pcodes as P
+    from webgraph_tpu_torch.probes import composite as CP
+    from webgraph_tpu_torch.probes import fetch as FB
+    from webgraph_tpu_torch.probes import gamma as GM
+    from webgraph_tpu_torch.probes import onehot as OH
+    from webgraph_tpu_torch.probes import winmach as WM
+    from webgraph_tpu_torch.timing import cuda_ms, kernel_ms
+
+    wrappers = {"probe_winmach": WM.winmach, "probe_relayout": CP.relayout,
+                "probe_merge_trip": CP.merge_trip, "probe_refill": CP.refill,
+                "probe_compaction": CP.compaction,
+                "probe_page_fetch": CP.page_fetch, "probe_fetch": FB.fetch,
+                "probe_row_gather": OH.row_gather}
+    for w in wrappers.values():
+        w.launches = 0
+    P.probe.launches = 0
+    wm, gm, cp, fb, oh = (WM.run("cuda"), GM.run("cuda"), CP.run("cuda"),
+                          FB.run("cuda"), OH.run("cuda"))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["gamma"] = P.probe.launches
+    print("probe path launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(all(v >= 1 for v in launches.values()),
+          f"a probe kernel was not launched on the probe path: {launches}")
+    check(wm["ok"], f"probe_winmach: {wm['bad']} codes differ from the oracle")
+    check(gm["ok"], "gamma route: values or positions differ")
+    check(fb["ok"], f"probe_fetch differs from the plain sum: {fb['values']}")
+    check(oh["ok"], "probe_row_gather differs from T[idx]")
+
+    def held(name, kernel, fn, plain, nbytes, ops, ms):
+        """``fn()`` (a wrapper call launching ``kernel`` once) against
+        ``plain()``, exactly; the plain version timed on its second run,
+        the kernel's own device time from a trace (``device_ms``; ``ms``
+        is the wrapper's CUDA-event time, launch included): the numbers
+        of a row."""
+        as_tuple = (lambda t: t if isinstance(t, tuple) else (t,))
+        err = _max_err(as_tuple(fn()), as_tuple(plain()))
+        check(err == 0, f"{name} differs from its plain version "
+                        f"(max |err| {err})")
+        _, plain_ms = _events_ms(plain)
+        device = kernel_ms(fn, 5, (kernel,))[kernel]
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"{name}: exact vs plain; wrapper {ms:.4f} ms, kernel "
+              f"{device:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
+              f"plain {plain_ms:.4f} ms")
+        return {"max_abs_err": err, "ms": ms, "device_ms": device,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    none = "none: no single PyTorch call computes it"
+    rows = {}
+    # B.1: the stream, the starts and the codes moved once, a read a code
+    vals, words, starts = WM.inputs()
+    w = torch.from_numpy(WM.stream_words(words)).cuda()
+    st = torch.from_numpy(starts).cuda()
+    rows["probe_winmach"] = {**held(
+        "probe_winmach", "probe_winmach", lambda: WM.winmach(w, st),
+        lambda: WM.winmach_plain(w, st),
+        w.numel() * 8 + st.numel() * 8 + vals.size * 4, vals.size, wm["ms"]),
+        "library_ms": None, "library_note": none}
+    # B.2: k0_probe's γ route; the stream, positions, values, lengths once
+    _, data, pos, _ = GM.inputs()
+    w = torch.from_numpy(GM.stream_words(data)).cuda()
+    p = torch.from_numpy(pos).long().cuda()
+    rows["gamma"] = {**held(
+        "k0_probe (gamma route)", "k0_probe", lambda: P.probe(w, p, C.GAMMA),
+        lambda: P.probe_plain(w, p, C.GAMMA),
+        w.numel() * 8 + p.numel() * (8 + 8 + 4), p.numel(), gm["ms"]),
+        "library_ms": None, "library_note": none}
+    # B.3: each run against its plain loop at PROBE_TRIPS, timed and bounded
+    # at the script's trips; a kernel's row sums its runs
+    ins = CP.inputs()
+    for name, r in cp.items():
+        args = [torch.from_numpy(a).cuda() for a in ins[name]]
+        kernel = CP.KERNELS[name[0]]
+        plain = getattr(CP, kernel.__name__ + "_plain")
+        extra = (int(name[1:]),) if name[0] == "J" else ()
+        nr = CP.reps(name, PROBE_TRIPS)
+        one = held(f"probe_{kernel.__name__} {name}",
+                   f"probe_{kernel.__name__}",
+                   lambda: CP.call(name, args, PROBE_TRIPS),
+                   lambda: plain(*args, *extra, nr),
+                   _probe_bytes(name, ins[name]),
+                   r["reps"] * 1024 * PROBE_OPS[name[0]], r["ms"])
+        # device_ms was traced at PROBE_TRIPS: the kernel's time at the
+        # comparison size, beside the plain version's
+        one.update(reps=r["reps"], plain_reps=nr,
+                   device_ms_at_plain_reps=one.pop("device_ms"),
+                   per_rep=CP.cost(name, r["ms"], r["reps"]).strip())
+        agg = rows.setdefault(f"probe_{kernel.__name__}", {
+            "max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": one["bound_by"], "reps": r["reps"], "plain_reps": nr,
+            "library_ms": None, "library_note": none, "runs": {}})
+        agg["runs"][name] = one
+        agg["max_abs_err"] = max(agg["max_abs_err"], one["max_abs_err"])
+        for k in ("ms", "plain_ms", "bound_ms"):
+            agg[k] += one[k]
+        if name == "G":  # out = x + reps, which one torch.add computes
+            x, n = args[0], r["reps"]
+            check(torch.equal(torch.add(x, n), r["out"][0]),
+                  "torch.add(x, TRIPS) differs from probe_relayout")
+            agg.update(library_ms=cuda_ms(lambda: torch.add(x, n), 5),
+                       library_note="torch.add(x, TRIPS)")
+    # B.4: K steps x 1,024 lanes x 16 words summed; pos and pool read once
+    pos, pool = FB.inputs()
+    p, q = torch.from_numpy(pos).cuda(), torch.from_numpy(pool).cuda()
+    rows["probe_fetch"] = {**held(
+        "probe_fetch", "probe_fetch", lambda: FB.fetch(p, q),
+        lambda: FB.fetch_plain(p, q),
+        pos.nbytes + pool.nbytes + 4, 2 * pos.size * FB.K * 16,
+        statistics.median(fb["ms"].values())),
+        "modes_ms": fb["ms"], "library_ms": None,
+        "library_note": "none: no single PyTorch call gathers and sums"}
+    # B.5: the byte planes, the indices and the output moved once
+    words, planes, idx = OH.inputs()
+    pl, ix = torch.from_numpy(planes).cuda(), torch.from_numpy(idx).cuda()
+    table = torch.from_numpy(words.view(np.int32)).cuda()
+    flat = ix.long()  # torch.take's indices are int64
+    check(torch.equal(torch.take(table, flat), oh["out"]),
+          "torch.take differs from probe_row_gather on the script's inputs")
+    torch.take(table, flat)
+    rows["probe_row_gather"] = {**held(
+        "probe_row_gather", "probe_row_gather", lambda: OH.row_gather(pl, ix),
+        lambda: OH.row_gather_plain(pl, ix),
+        planes.nbytes + 2 * idx.nbytes, idx.size, oh["ms"]),
+        "library_ms": cuda_ms(lambda: torch.take(table, flat), 5),
+        "library_note": "torch.take(T, idx): equal to the kernel on the "
+                        "script's inputs only, where each row's indices "
+                        "share one table row"}
+    for name, r in rows.items():
+        r["launches"] = launches[name]
+    for name, r in cp.items():
+        print(f"{name:5s} {CP.KERNELS[name[0]].__name__:11s}: "
+              f"{CP.cost(name, r['ms'], r['reps'])} ({r['reps']} reps)")
+    return rows
 
 
 def phase_k2_small(tmp):
@@ -1194,6 +1409,7 @@ def main():
     regs = timed(phase_build)
     k0 = timed(phase_k0)
     probe = timed(phase_k2_probe)
+    probes = timed(phase_probes)
     with tempfile.TemporaryDirectory() as tmp:
         timed(phase_k1_small, tmp)
         t0 = time.perf_counter()
@@ -1244,7 +1460,11 @@ def main():
         row("k0_pcodes", "webgraph_tpu_torch/csrc/pcodes.cuh",
             "webgraph_tpu/pallas/pcodes.py:107",
             {**k0, "launches": k1p["launches"] + k2p["launches"]},
-            inlined_in=["k1_parse", "k2_parse"]),
+            inlined_in=["k1_parse", "k2_parse"],
+            gamma_route={**probes.pop("gamma"),
+                         "source": "webgraph_tpu_torch/csrc/decode2.cu",
+                         "kernel": "k0_probe",
+                         "replaces": "scripts/pallas_probe.py:18"}),
         row("k2_parse", "webgraph_tpu_torch/csrc/decode.cu",
             "webgraph_tpu/pallas/decode.py:423", k2p,
             phases="_p1b_blocks :669, _p2_extras :799"),
@@ -1265,6 +1485,14 @@ def main():
                     "segmented-OR scan _seg_or_scan and its callers"),
          "library_ms": pull["library_ms"]},
     ]
+    # the fragment probes: each run on the probe path of phase_probes
+    for name, replaces in PROBE_REPLACES.items():
+        r = probes[name]
+        kernels.append({
+            **row(name, "webgraph_tpu_torch/csrc/probes.cu", replaces, r,
+                  **{k: r[k] for k in ("device_ms", "reps", "plain_reps",
+                                       "runs", "modes_ms") if k in r}),
+            "library_ms": r["library_ms"], "library_note": r["library_note"]})
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

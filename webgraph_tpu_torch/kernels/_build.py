@@ -66,6 +66,24 @@ _SIGNATURES = {
         # in_off, in_src, n, old, new, stats, perbit, dist, level, stream
         "wgt_or_pull": (_P, _P, _L, _P, _P, _P, _I, _P, _I, _P),
     },
+    "probes.cu": {
+        # words, nbits, starts, lanes, k, coding, zeta_k, out, stream
+        "wgt_probe_winmach": (_P, _L, _P, _I, _I, _I, _I, _P, _P),
+        # x, trips, out, stream
+        "wgt_probe_relayout": (_P, _I, _P, _P),
+        # x, trips, out, wq, colbuf, stream
+        "wgt_probe_merge_trip": (_P, _I, _P, _P, _P, _P),
+        # pages, p8, x, reps, out, stream
+        "wgt_probe_refill": (_P, _I, _P, _I, _P, _P),
+        # x, pre, r, reps, colT, pool, out, stream
+        "wgt_probe_compaction": (_P, _P, _I, _I, _P, _P, _P, _P),
+        # pages, np, x, reps, out, chk, stream
+        "wgt_probe_page_fetch": (_P, _I, _P, _I, _P, _P, _P),
+        # pos, lanes, pool, rows, k, out, stream
+        "wgt_probe_fetch": (_P, _I, _P, _I, _I, _P, _P),
+        # planes, r, idx, n, out, stream
+        "wgt_probe_row_gather": (_P, _I, _P, _I, _P, _P),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 
