@@ -41,6 +41,14 @@ own modules:
    the launch counts reset just before and read just after, then each of
    the eight probe kernels and K0's γ route exactly against its plain
    version (the composite ones at 2,048 trips), timed;
+   then the in-loop primitive probes (``probes/timing5.py``,
+   ``bisect4.py``, ``bisect3.py``, ``perf.py``, the counterparts of the JAX
+   package's ``scripts/pallas_timing5.py``, ``pallas_bisect4.py``,
+   ``pallas_bisect3.py`` and ``pallas_perf_probe.py``): each module's
+   ``run("cuda")`` at the scripts' on-chip loop counts (a few cut) with the
+   counts reset just before and read just after, then each run exactly
+   against its plain version at 136 loops, timed, bounded, and beside a
+   library call where one computes its primitive (``phase_loop_probes``);
 8. K2 small: ``k2_parse`` against ``parse_records_plain`` (every slot it
    writes), the decode (``k2_parse`` then ``k2_resolve``) against the plain
    decoder and the oracle, exactly, on the graph set of
@@ -112,10 +120,32 @@ PROBE_REPLACES = {
     "probe_page_fetch": "scripts/pallas_composite_probe.py:213",
     "probe_fetch": "scripts/pallas_fetch_bench.py:31",
     "probe_row_gather": "scripts/pallas_onehot_probe.py:30"}
+# the TPU functions (each reaches pallas_call) each in-loop kernel replaces
+LOOP_REPLACES = {
+    "probe_lane_loop": "scripts/pallas_timing5.py:56 trip_core; "
+                       "scripts/pallas_bisect3.py:38 trip_variant, :82 trip_1x1024; "
+                       "scripts/pallas_perf_probe.py:157 probe_rowstore, :207 probe_vpu",
+    "probe_gather_loop": "scripts/pallas_timing5.py:99 gather_loop; "
+                         "scripts/pallas_bisect3.py:110 gather_inloop_timed; "
+                         "scripts/pallas_perf_probe.py:61 probe_replicated, "
+                         ":128 probe_ownrow",
+    "probe_dot_loop": "scripts/pallas_timing5.py:125 matmul_loop; "
+                      "scripts/pallas_bisect4.py:38 matmul_inloop",
+    "probe_plane_refill": "scripts/pallas_bisect3.py:134 refill_variant; "
+                          "scripts/pallas_perf_probe.py:89 probe_onehot",
+    "probe_transpose_loop": "scripts/pallas_timing5.py:158 transpose_loop; "
+                            "scripts/pallas_bisect4.py:69 transpose_inloop; "
+                            "scripts/pallas_perf_probe.py:184 probe_transpose",
+    "probe_copy_loop": "scripts/pallas_timing5.py:178 dma_loop; "
+                       "scripts/pallas_bisect4.py:87 dma_inloop",
+    "probe_stack_fetch": "scripts/pallas_bisect3.py:193 stack_select_refill",
+    "probe_jframe": "scripts/pallas_bisect3.py:232 j_part; "
+                    "scripts/pallas_bisect4.py:110 j_frame"}
 KERNELS = {"decode2.cu": ("k1_parse", "k0_probe"),
            "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe"),
            "propagate.cu": ("or_pull",),
-           "probes.cu": tuple(PROBE_REPLACES)}
+           "probes.cu": tuple(PROBE_REPLACES),
+           "loops.cu": tuple(LOOP_REPLACES)}
 
 
 def phase_build():
@@ -350,13 +380,14 @@ def _codes(bv, scan, nodes):
                 + scan.res_count.astype(np.int64)[nodes]).sum())
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, int8_ops=0):
     """Least time (ms, and what bounds it) for moving ``nbytes`` and doing
-    ``ops`` 32-bit integer operations on one H100: 3.35 TB/s, and 67 T
-    32-bit operations/s outside the tensor cores (the H100 SXM's published
-    float32 rate, taken for the integer rate)."""
+    ``ops`` 32-bit integer operations and ``int8_ops`` int8 tensor-core
+    operations on one H100: 3.35 TB/s, 67 T 32-bit operations/s outside the
+    tensor cores (the H100 SXM's published float32 rate, taken for the
+    integer rate) and 1,979 T int8 operations/s (dense)."""
     t_bytes = nbytes / 3.35e12 * 1e3
-    t_ops = ops / 67e12 * 1e3
+    t_ops = (ops / 67e12 + int8_ops / 1979e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -791,6 +822,215 @@ def phase_probes():
     for name, r in cp.items():
         print(f"{name:5s} {CP.KERNELS[name[0]].__name__:11s}: "
               f"{CP.cost(name, r['ms'], r['reps'])} ({r['reps']} reps)")
+    return rows
+
+
+# loop counts phase_loop_probes cuts from the script's (in the comment), so
+# that the phase stays near a minute: 6 timed runs of each at these counts
+LOOP_CUTS = {"timing5": {"G1024": 1 << 16,   # 2**19
+                         "M1": 1 << 13},     # 2**15
+             "bisect3": {"G1024": 1 << 15}}  # 2**17
+# loops at which each in-loop probe is held to its plain version (past 128,
+# so the slab row store wraps onto row 0, and past the copy's 32 slices)
+LOOP_PLAIN_REPS = 136
+
+
+def _loop_work(probe, reps):
+    """(bytes, 32-bit integer operations, int8 tensor-core operations) a run
+    of ``probe`` at ``reps`` loops must move and do: its inputs read once
+    and its outputs written once; a lane's (or a word's) operations a loop
+    as counted in each branch."""
+    from webgraph_tpu_torch.probes import loops as L
+
+    ins = sum(a.nbytes for a in probe.arrays)
+    tile, k, pr = 4096, probe.kernel, probe.params
+    if k is L.lane_loop:  # out, the queue's 8 rows, the slab
+        f = pr["flags"]
+        per = ((6 if f & L.LL_VPU else 7) * pr["rounds"]
+               + 2 * bool(f & L.LL_ROWSTORE) + bool(f & L.LL_RESHAPE)
+               + 9 * bool(f & (L.LL_QUEUE_HALF | L.LL_QUEUE_ODD))
+               + bool(f & (L.LL_STORE_V | L.LL_STORE_T)))
+        return ins + tile * (9 + pr.get("slab", L.SLAB)), reps * 1024 * per, 0
+    if k is L.gather_loop:  # an index and an add a gathered word
+        rows, cols = probe.arrays[0].shape
+        return ins + 2 * tile, reps * rows * cols * 2, 0
+    if k is L.dot_loop:
+        a, b = probe.arrays
+        if pr["onehot"]:  # an add a word of the lane's row; a is not read
+            return b.nbytes + 2 * tile, reps * 1024 * b.shape[1], 0
+        m, kk, n = a.shape[0], a.shape[1], b.shape[1]  # xor and add a sum
+        return ins + tile + 4, reps * m * n * 2, 2 * reps * m * kk * n
+    if k is L.plane_refill:  # 4 bytes shifted in and added a word
+        words = 8 if pr["mode"] == L.PR_REFILL else 128
+        return ins + 2 * tile, reps * 1024 * words * (8 if words == 8 else 2), 0
+    if k is L.transpose_loop:  # an add a word (two with addc)
+        return ins + 2 * tile, reps * probe.arrays[0].size * (1 + pr["addc"]), 0
+    if k is L.copy_loop:  # the slices copied, an add a word
+        return min(reps, 32) * 32768 + 2 * tile, reps * 8192, 0
+    if k is L.stack_fetch:  # 8 adds and ~6 for the index
+        return ins + 2 * tile, reps * 1024 * 14, 0
+    slab = pr["stage"] not in ("v0", "v1", "v4")  # jframe: a lane's 128-word row
+    per = 1 + 128 * slab + 128 * (pr["stage"] == "p3")
+    return ins + 2 * tile + L.JR * 512, reps * 1024 * per, 0
+
+
+def _loop_library(probe, args):
+    """(ms, note) of one PyTorch call that computes one loop's primitive of
+    ``probe`` (median of 5 by CUDA events), checked first against the
+    kernel's first loop; (None, note) where no single call does."""
+    import torch
+
+    from webgraph_tpu_torch.probes import loops as L
+    from webgraph_tpu_torch.timing import cuda_ms
+
+    k, pr = probe.kernel, probe.params
+    first = probe.call(args, 1)
+    out1 = first[0].long()
+    if k is L.gather_loop:
+        tbl, c0 = args[0], args[1].long()
+        rows, cols = tbl.shape
+        base = torch.arange(cols, device=tbl.device)[None, :].expand(rows, cols)
+        if pr["mode"] == L.GL_ROWS:
+            idx, mask = (base + c0[:1, :128]) & 127, 0xFFFF
+            part = (lambda v: v[:8, :128])
+        elif pr["mode"] == L.GL_REPL:
+            idx, mask = torch.remainder(base + c0[:, :1], cols), 0x7FFFFFFF
+            part = (lambda v: v[:, :128])
+        else:
+            idx = torch.remainder(base + c0.reshape(1024, 1), cols)
+            mask, part = 0x7FFFFFFF, (lambda v: v[:, :1].reshape(8, 128))
+        lib = (lambda: torch.gather(tbl, 1, idx))
+        check(torch.equal(out1, (c0 + part(lib()).long()) & mask),
+              f"torch.gather differs from {probe.name}'s first trip")
+        return cuda_ms(lib, 5), "torch.gather(table, 1, idx): one trip's take-along"
+    if k is L.transpose_loop:
+        x = args[0]
+        lib = (lambda: x.t().contiguous())
+        tr = lib()[:8, :128].long()
+        check(torch.equal(out1, tr if pr["addc"] else tr & 0x7FFF),
+              f"x.t().contiguous() differs from {probe.name}'s first rep")
+        return cuda_ms(lib, 5), "x.t().contiguous(): one rep's transpose"
+    if k is L.copy_loop:
+        x = args[0]
+        buf = torch.empty((8, 1024), dtype=x.dtype, device=x.device)
+        lib = (lambda: buf.copy_(x[0:8]))
+        check(torch.equal(out1, x[0:8, :128].long() & 0x7FFF),
+              f"the slice differs from {probe.name}'s first copy")
+        return cuda_ms(lib, 5), "Tensor.copy_ of one rep's (8, 1024) slice"
+    if k is L.dot_loop and not pr["onehot"]:
+        a, b = args
+        lib = (lambda: torch._int_mm(a, b))
+        prod = lib().long()
+        check(torch.equal(prod, (a.double() @ b.double()).long()),
+              "torch._int_mm differs from the plain product")
+        chk1 = (int(prod.sum()) + (1 << 31)) % (1 << 32) - (1 << 31)  # t = 0
+        check(torch.equal(out1, (1 + prod[:8, :128]) & 0x7FFF)
+              and int(first[1][0]) == chk1,
+              f"torch._int_mm differs from {probe.name}'s product")
+        return cuda_ms(lib, 5), "torch._int_mm(a, b): one rep's product"
+    if k is L.dot_loop or (k is L.plane_refill and pr["mode"] == L.PR_ROWS):
+        # a row gather: one-hot p = b[carry % k] from ones, or perf B's
+        # p = table[carry] (the carry stays inside the table)
+        tbl = args[1] if k is L.dot_loop else args[0]
+        if k is L.dot_loop:
+            idx = torch.full((1024,), 1 % tbl.shape[0], dtype=torch.long,
+                             device=tbl.device)
+        else:
+            idx = args[1].long().reshape(1024)
+        lib = (lambda: torch.index_select(tbl, 0, idx))
+        p = lib().long()
+        if k is L.dot_loop:
+            ok = (torch.equal(out1, (1 + p[:8, :128]) & 0x7FFF)
+                  and torch.equal(first[1].long(), p.sum(1)))
+        else:
+            ok = torch.equal(out1, torch.remainder(
+                idx.reshape(8, 128) + p[:, 0].reshape(8, 128), tbl.shape[0]))
+        check(ok, f"torch.index_select differs from {probe.name}'s first loop")
+        return cuda_ms(lib, 5), "torch.index_select(table, 0, idx): one loop's row gather"
+    return None, "none: no single PyTorch call computes it"
+
+
+def phase_loop_probes():
+    """The in-loop primitive probes (``webgraph_tpu_torch/probes``:
+    ``timing5``, ``bisect4``, ``bisect3``, ``perf``, the counterparts of
+    the JAX package's ``scripts/pallas_timing5.py``, ``pallas_bisect4.py``,
+    ``pallas_bisect3.py`` and ``pallas_perf_probe.py``; the eight kernels of
+    ``csrc/loops.cu``) on the scripts' inputs at the scripts' on-chip loop
+    counts, but those :data:`LOOP_CUTS` cuts.  The probe path is each
+    module's ``run("cuda")`` (the entry point of ``python -m
+    webgraph_tpu_torch.probes.<name>``) with every launch count reset just
+    before and read just after; it times each run by CUDA events (median of
+    5 after a warm-up).  Then each run is held to its plain version exactly
+    at :data:`LOOP_PLAIN_REPS` loops (a plain loop at the scripts' counts
+    would take minutes), its kernel's own device time traced at that count
+    (None where every trace dropped the kernel's records), its bound computed (:func:`_loop_work`) and, where one PyTorch call
+    computes a loop's primitive, that call timed (:func:`_loop_library`).
+    Returns each kernel's row, its runs under ``"runs"``."""
+    import torch
+
+    from webgraph_tpu_torch.probes import bisect3, bisect4, perf, timing5
+    from webgraph_tpu_torch.probes import loops as L
+    from webgraph_tpu_torch.timing import NoWholeRun, kernel_ms
+
+    modules = {"timing5": timing5, "bisect4": bisect4, "bisect3": bisect3,
+               "perf": perf}
+    for w in L.KERNELS.values():
+        w.launches = 0
+    res = {m: M.run("cuda", cut=LOOP_CUTS.get(m)) for m, M in modules.items()}
+    launches = {k: w.launches for k, w in L.KERNELS.items()}
+    print("in-loop probe path launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(all(v >= 1 for v in launches.values()),
+          f"an in-loop probe kernel was not launched on the probe path: {launches}")
+    # a kernel's row sums its runs: ms and bound_ms over ``reps`` loops (the
+    # probe path's), plain_ms and device_ms_at_plain_reps over ``plain_reps``
+    rows = {k: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "device_ms_at_plain_reps": 0.0, "reps": 0, "plain_reps": 0,
+                "launches": launches[k],
+                "library_ms": None, "library_note": None, "runs": {}}
+            for k in L.KERNELS}
+    for m, M in modules.items():
+        for p in M.probes():
+            r = res[m][p.name]
+            args = [torch.from_numpy(a).cuda() for a in p.arrays]
+            n = min(r["reps"], LOOP_PLAIN_REPS)
+            err = _max_err(p.call(args, n), p.call(args, n, plain=True))
+            check(err == 0, f"{m} {p.name}: {r['kernel']} differs from its plain "
+                            f"version (max |err| {err})")
+            _, plain_ms = _events_ms(lambda: p.call(args, n, plain=True))
+            torch.cuda.synchronize()  # a fault of the runs above raises here
+            try:  # a measurement only: the trace may drop a kernel's records
+                device = kernel_ms(lambda: p.call(args, n), 5,
+                                   (r["kernel"],))[r["kernel"]]
+            except NoWholeRun as exc:
+                device = None
+                print(f"{m}/{p.name}: device time not measured ({exc})")
+            bound_ms, bound_by = _bound(*_loop_work(p, r["reps"]))
+            lib_ms, note = _loop_library(p, args)
+            per_rep = L.cost(r).strip()
+            print(f"{m}/{p.name}: {r['kernel']} exact vs plain at {n}; {r['reps']} "
+                  f"reps {r['ms']:.4f} ms ({per_rep}), bound {bound_ms:.6f} ms "
+                  f"({bound_by}), plain {plain_ms:.4f} ms at {n}"
+                  + ("" if lib_ms is None else f"; library {lib_ms:.4f} ms a call"))
+            agg = rows[r["kernel"]]
+            agg["runs"][f"{m}/{p.name}"] = {
+                "reps": r["reps"], "script_reps": p.reps, "plain_reps": n,
+                "ms": r["ms"], "per_rep": per_rep, "device_ms_at_plain_reps": device,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+            for key, v in (("ms", r["ms"]), ("plain_ms", plain_ms),
+                           ("bound_ms", bound_ms), ("device_ms_at_plain_reps", device)):
+                agg[key] = None if v is None or agg[key] is None else agg[key] + v
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            agg["reps"] += r["reps"]
+            agg["plain_reps"] += n
+            if agg["library_ms"] is None and lib_ms is not None:
+                agg["library_ms"] = lib_ms
+                agg["library_note"] = f"{m}/{p.name}: {note}"
+    for agg in rows.values():
+        worst = max(agg["runs"].values(), key=lambda x: x["bound_ms"])
+        agg["bound_by"] = worst["bound_by"]
+        agg["library_note"] = agg["library_note"] or "none: no single PyTorch call computes it"
     return rows
 
 
@@ -1410,6 +1650,7 @@ def main():
     k0 = timed(phase_k0)
     probe = timed(phase_k2_probe)
     probes = timed(phase_probes)
+    loop_rows = timed(phase_loop_probes)
     with tempfile.TemporaryDirectory() as tmp:
         timed(phase_k1_small, tmp)
         t0 = time.perf_counter()
@@ -1492,6 +1733,15 @@ def main():
             **row(name, "webgraph_tpu_torch/csrc/probes.cu", replaces, r,
                   **{k: r[k] for k in ("device_ms", "reps", "plain_reps",
                                        "runs", "modes_ms") if k in r}),
+            "library_ms": r["library_ms"], "library_note": r["library_note"]})
+    # the in-loop primitive probes: each run on the probe path of
+    # phase_loop_probes
+    for name, replaces in LOOP_REPLACES.items():
+        r = loop_rows[name]
+        kernels.append({
+            **row(name, "webgraph_tpu_torch/csrc/loops.cu", replaces, r,
+                  **{k: r[k] for k in ("reps", "plain_reps",
+                                       "device_ms_at_plain_reps", "runs")}),
             "library_ms": r["library_ms"], "library_note": r["library_note"]})
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

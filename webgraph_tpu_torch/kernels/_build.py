@@ -84,6 +84,24 @@ _SIGNATURES = {
         # planes, r, idx, n, out, stream
         "wgt_probe_row_gather": (_P, _I, _P, _I, _P, _P),
     },
+    "loops.cu": {
+        # x, flags, rounds, trips, slab, out, wq, colbuf, stream
+        "wgt_probe_lane_loop": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
+        # tbl, rows, cols, mode, carry0, reps, nstage, out, chk, stream
+        "wgt_probe_gather_loop": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
+        # a, b, m, k, n, onehot, reps, out, chk, stream
+        "wgt_probe_dot_loop": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+        # pages, rows, mode, carry0, reps, nstage, out, chk, stream
+        "wgt_probe_plane_refill": (_P, _I, _I, _P, _I, _I, _P, _P, _P),
+        # x, t_rows, addc, reps, xt, out, chk, stream
+        "wgt_probe_transpose_loop": (_P, _I, _I, _I, _P, _P, _P, _P),
+        # x, rows, reps, out, chk, stream
+        "wgt_probe_copy_loop": (_P, _I, _I, _P, _P, _P),
+        # x, reps, out, chk, stream
+        "wgt_probe_stack_fetch": (_P, _I, _P, _P, _P),
+        # x, pre, stage, reps, colT, pool, out, chk, stream
+        "wgt_probe_jframe": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

@@ -12,14 +12,19 @@ package's TPU probe scripts, one module a script.
 * :mod:`.fetch` — ``scripts/pallas_fetch_bench.py``: pool gathers, summed
   (``probe_fetch``);
 * :mod:`.onehot` — ``scripts/pallas_onehot_probe.py``: a table-row gather
-  (``probe_row_gather``).
+  (``probe_row_gather``);
+* :mod:`.timing5`, :mod:`.bisect4`, :mod:`.bisect3`, :mod:`.perf` —
+  ``scripts/pallas_timing5.py``, ``pallas_bisect4.py``, ``pallas_bisect3.py``,
+  ``pallas_perf_probe.py``: primitives timed in a loop (trip recurrence,
+  gather, int8 product, byte-plane refill, transpose, async copy, stack
+  fetch, compaction frame), on the eight kernel families of :mod:`.loops`.
 
 Each module makes the script's inputs from the script's seeds, has a plain
 PyTorch version of each kernel and a wrapper that counts its launches (CPU
 tensors take the plain version; CUDA tensors launch the kernel or raise),
 and a ``main()`` for ``python -m webgraph_tpu_torch.probes.<name>``, which
 runs on the card unless ``--device cpu`` is given.  The kernels are in
-``csrc/probes.cu``.
+``csrc/probes.cu`` and, for :mod:`.loops`, ``csrc/loops.cu``.
 """
 
 from __future__ import annotations

@@ -10,6 +10,10 @@ import statistics
 TRACES = 3  # traces kernel_runs takes before it gives up
 
 
+class NoWholeRun(RuntimeError):
+    """Every trace :func:`kernel_runs` took dropped a record of a run."""
+
+
 def cuda_ms(fn, reps):
     """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
     import torch
@@ -33,7 +37,7 @@ def kernel_runs(fn, reps, names):
     kernel names of ``names`` to the (start, end) of their one launch in
     microseconds.  A run whose records the trace dropped is left out; a
     trace that shows no whole run is taken again, up to :data:`TRACES`
-    times, then this raises."""
+    times, then this raises :class:`NoWholeRun`."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -56,7 +60,7 @@ def kernel_runs(fn, reps, names):
                 runs.append({k: v[0] for k, v in run.items()})
         if runs:
             return runs
-    raise RuntimeError(f"no run of {reps} shows every launch of {names} "
+    raise NoWholeRun(f"no run of {reps} shows every launch of {names} "
                        f"in {TRACES} traces")
 
 
