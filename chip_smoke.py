@@ -49,6 +49,16 @@ own modules:
    counts reset just before and read just after, then each run exactly
    against its plain version at 136 loops, timed, bounded, and beside a
    library call where one computes its primitive (``phase_loop_probes``);
+   then the capability forms and the streaming decoder's probes
+   (``probes/caps.py``, ``bisect.py``, ``bisect2.py``, ``v6.py``,
+   ``v6b.py``, the counterparts of ``scripts/pallas_caps_probe.py``,
+   ``pallas_bisect_probe.py``, ``pallas_bisect2.py``, ``v6_probe.py`` and
+   ``v6_probe2.py``): each module's ``run("cuda")`` at the scripts' sizes
+   and counts with the counts reset just before and read just after, each
+   form against the script's own check and, exactly, its plain version,
+   each loop run against its plain version at 136 loops or fewer, timed,
+   bounded, and beside a library call where one computes the form
+   (``phase_form_probes``);
 8. K2 small: ``k2_parse`` against ``parse_records_plain`` (every slot it
    writes), the decode (``k2_parse`` then ``k2_resolve``) against the plain
    decoder and the oracle, exactly, on the graph set of
@@ -128,24 +138,52 @@ LOOP_REPLACES = {
     "probe_gather_loop": "scripts/pallas_timing5.py:99 gather_loop; "
                          "scripts/pallas_bisect3.py:110 gather_inloop_timed; "
                          "scripts/pallas_perf_probe.py:61 probe_replicated, "
-                         ":128 probe_ownrow",
+                         ":128 probe_ownrow; scripts/pallas_bisect2.py:93 gather_in_loop",
     "probe_dot_loop": "scripts/pallas_timing5.py:125 matmul_loop; "
                       "scripts/pallas_bisect4.py:38 matmul_inloop",
     "probe_plane_refill": "scripts/pallas_bisect3.py:134 refill_variant; "
                           "scripts/pallas_perf_probe.py:89 probe_onehot",
     "probe_transpose_loop": "scripts/pallas_timing5.py:158 transpose_loop; "
                             "scripts/pallas_bisect4.py:69 transpose_inloop; "
-                            "scripts/pallas_perf_probe.py:184 probe_transpose",
+                            "scripts/pallas_perf_probe.py:184 probe_transpose; "
+                            "scripts/pallas_bisect2.py:72 transpose_in_loop",
     "probe_copy_loop": "scripts/pallas_timing5.py:178 dma_loop; "
                        "scripts/pallas_bisect4.py:87 dma_inloop",
     "probe_stack_fetch": "scripts/pallas_bisect3.py:193 stack_select_refill",
     "probe_jframe": "scripts/pallas_bisect3.py:232 j_part; "
                     "scripts/pallas_bisect4.py:110 j_frame"}
+# the TPU functions each single-shot form kernel (forms.cu) and each v6 loop
+# kernel (loops.cu) replaces; bisect2's two loops run on LOOP_REPLACES'
+# probe_gather_loop and probe_transpose_loop (FORM_LOOP_KERNELS)
+FORM_REPLACES = {
+    "probe_form_gather": "scripts/pallas_caps_probe.py:60 probe_take_narrow, "
+                         ":263 probe_take_wide; scripts/pallas_bisect_probe.py:44 "
+                         "g_n128, :53 g_wide, :62 g_axis0; scripts/v6_probe.py:32 probe_ta0",
+    "probe_form_relayout": "scripts/pallas_caps_probe.py:304 probe_transpose, "
+                           ":339 probe_reshape; scripts/pallas_bisect_probe.py:105 tr, "
+                           ":113 rshp, :121 bcast; scripts/v6_probe.py:49 probe_t8",
+    "probe_form_roll": "scripts/pallas_caps_probe.py:77 probe_var_roll; "
+                       "scripts/pallas_bisect2.py:84 dyn_roll",
+    "probe_form_dot": "scripts/pallas_caps_probe.py:319 probe_dot_dim0; "
+                      "scripts/pallas_bisect_probe.py:72 dot_var",
+    "probe_form_onehot": "scripts/pallas_caps_probe.py:101 probe_onehot_scatter; "
+                         "scripts/pallas_bisect_probe.py:86 dot_onehot_inkernel; "
+                         "scripts/pallas_bisect2.py:34 onehotT_gather, :107 scatter_onehot",
+    "probe_form_copy": "scripts/pallas_caps_probe.py:169 probe_dma, :210 probe_prefetch, "
+                       ":280 probe_dma_flatten",
+    "probe_form_scalar": "scripts/pallas_caps_probe.py:42 probe_clz, :142 probe_fori",
+    "probe_v6_trip": "scripts/v6_probe.py:71 probe_trip",
+    "probe_v6_fetch": "scripts/v6_probe.py:140 probe_fetch",
+    "probe_body_loop": "scripts/v6_probe2.py:17 run_loop, bodies :72-155"}
 KERNELS = {"decode2.cu": ("k1_parse", "k0_probe"),
            "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe"),
            "propagate.cu": ("or_pull",),
            "probes.cu": tuple(PROBE_REPLACES),
-           "loops.cu": tuple(LOOP_REPLACES)}
+           "loops.cu": tuple(LOOP_REPLACES)
+           + ("probe_v6_trip", "probe_v6_fetch", "probe_body_loop"),
+           "forms.cu": tuple(k for k in FORM_REPLACES if k.startswith("probe_form"))}
+# the in-loop kernels the form probe path launches too (bisect2's loops)
+FORM_LOOP_KERNELS = ("probe_gather_loop", "probe_transpose_loop")
 
 
 def phase_build():
@@ -380,14 +418,15 @@ def _codes(bv, scan, nodes):
                 + scan.res_count.astype(np.int64)[nodes]).sum())
 
 
-def _bound(nbytes, ops, int8_ops=0):
+def _bound(nbytes, ops, int8_ops=0, bf16_ops=0):
     """Least time (ms, and what bounds it) for moving ``nbytes`` and doing
-    ``ops`` 32-bit integer operations and ``int8_ops`` int8 tensor-core
-    operations on one H100: 3.35 TB/s, 67 T 32-bit operations/s outside the
-    tensor cores (the H100 SXM's published float32 rate, taken for the
-    integer rate) and 1,979 T int8 operations/s (dense)."""
+    ``ops`` 32-bit operations, ``int8_ops`` int8 and ``bf16_ops`` bf16
+    tensor-core operations on one H100: 3.35 TB/s, 67 T 32-bit operations/s
+    outside the tensor cores (the H100 SXM's published float32 rate, taken
+    for the integer rate), 1,979 T int8 and 989 T bf16 operations/s
+    (dense)."""
     t_bytes = nbytes / 3.35e12 * 1e3
-    t_ops = (ops / 67e12 + int8_ops / 1979e12) * 1e3
+    t_ops = (ops / 67e12 + int8_ops / 1979e12 + bf16_ops / 989e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -650,7 +689,8 @@ def _max_err(got, want):
     for g, w in zip(got, want, strict=True):
         check(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
         if g.numel():
-            err = max(err, int((g.long() - w.long()).abs().max()))
+            d = g.double() - w.double() if g.is_floating_point() else g.long() - w.long()
+            err = max(err, d.abs().max().item())
     return err
 
 
@@ -851,9 +891,10 @@ def _loop_work(probe, reps):
                + 9 * bool(f & (L.LL_QUEUE_HALF | L.LL_QUEUE_ODD))
                + bool(f & (L.LL_STORE_V | L.LL_STORE_T)))
         return ins + tile * (9 + pr.get("slab", L.SLAB)), reps * 1024 * per, 0
-    if k is L.gather_loop:  # an index and an add a gathered word
+    if k is L.gather_loop:  # the index (an add and a modulo), the carry's add and mask
         rows, cols = probe.arrays[0].shape
-        return ins + 2 * tile, reps * rows * cols * 2, 0
+        index = 2 * (128 if pr["mode"] in (L.GL_ROWS, L.GL_COL) else rows * cols)
+        return ins + 2 * tile, reps * (index + 2 * 1024), 0
     if k is L.dot_loop:
         a, b = probe.arrays
         if pr["onehot"]:  # an add a word of the lane's row; a is not read
@@ -863,8 +904,10 @@ def _loop_work(probe, reps):
     if k is L.plane_refill:  # 4 bytes shifted in and added a word
         words = 8 if pr["mode"] == L.PR_REFILL else 128
         return ins + 2 * tile, reps * 1024 * words * (8 if words == 8 else 2), 0
-    if k is L.transpose_loop:  # an add a word (two with addc)
-        return ins + 2 * tile, reps * probe.arrays[0].size * (1 + pr["addc"]), 0
+    if k is L.transpose_loop:  # the carry's adds (and mask); TL_ADDC an add a word
+        per = {L.TL_MASK: 3, L.TL_ADDC: 1, L.TL_NOMASK: 2}[pr["addc"]] * 1024
+        words = probe.arrays[0].size if pr["addc"] == L.TL_ADDC else 0
+        return ins + 2 * tile, reps * (per + words), 0
     if k is L.copy_loop:  # the slices copied, an add a word
         return min(reps, 32) * 32768 + 2 * tile, reps * 8192, 0
     if k is L.stack_fetch:  # 8 adds and ~6 for the index
@@ -890,8 +933,9 @@ def _loop_library(probe, args):
         tbl, c0 = args[0], args[1].long()
         rows, cols = tbl.shape
         base = torch.arange(cols, device=tbl.device)[None, :].expand(rows, cols)
-        if pr["mode"] == L.GL_ROWS:
-            idx, mask = (base + c0[:1, :128]) & 127, 0xFFFF
+        if pr["mode"] in (L.GL_ROWS, L.GL_COL):
+            key = c0[:1, :128] + (base if pr["mode"] == L.GL_ROWS else 0)
+            idx, mask = (key & 127).expand(rows, cols), 0xFFFF
             part = (lambda v: v[:8, :128])
         elif pr["mode"] == L.GL_REPL:
             idx, mask = torch.remainder(base + c0[:, :1], cols), 0x7FFFFFFF
@@ -907,7 +951,7 @@ def _loop_library(probe, args):
         x = args[0]
         lib = (lambda: x.t().contiguous())
         tr = lib()[:8, :128].long()
-        check(torch.equal(out1, tr if pr["addc"] else tr & 0x7FFF),
+        check(torch.equal(out1, tr & 0x7FFF if pr["addc"] == L.TL_MASK else tr),
               f"x.t().contiguous() differs from {probe.name}'s first rep")
         return cuda_ms(lib, 5), "x.t().contiguous(): one rep's transpose"
     if k is L.copy_loop:
@@ -1027,6 +1071,355 @@ def phase_loop_probes():
             if agg["library_ms"] is None and lib_ms is not None:
                 agg["library_ms"] = lib_ms
                 agg["library_note"] = f"{m}/{p.name}: {note}"
+    for agg in rows.values():
+        worst = max(agg["runs"].values(), key=lambda x: x["bound_ms"])
+        agg["bound_by"] = worst["bound_by"]
+        agg["library_note"] = agg["library_note"] or "none: no single PyTorch call computes it"
+    return rows
+
+
+
+def _exact(got, want):
+    """Max |got - want| (0: equal), raising where the dtypes or shapes
+    differ."""
+    for g, w in zip(got, want, strict=True):
+        check(g.dtype == w.dtype, f"dtype {g.dtype} != {w.dtype}")
+    return _max_err(got, want)
+
+
+def _loop_of(form):
+    """A form that runs on an in-loop kernel (bisect2's loops) as the
+    :class:`loops.Probe` of its one run, its carry among the inputs."""
+    from webgraph_tpu_torch.probes import loops as L
+
+    params = {k: v for k, v in form.params.items() if k != "reps"}
+    return L.Probe(form.name, form.kernel, form.arrays + form.consts, params,
+                   form.params["reps"], "trip")
+
+
+def _form_work(form, args, out):
+    """(bytes, 32-bit operations, int8 and bf16 tensor operations) a form
+    must move and do: each input word it needs read once (a gather reads
+    the table words its indices reach, a copy the rows it copies), each
+    output word it writes written once (a copy's other rows are filled
+    outside the kernel); the operations an output word (a product's
+    multiply-adds, a scatter's planes a source word).  The port's
+    checksums are not counted."""
+    import torch
+
+    from webgraph_tpu_torch.probes import forms as F
+    from webgraph_tpu_torch.probes import loops as L
+
+    k, pr = form.kernel, form.params
+    if k in (L.gather_loop, L.transpose_loop):
+        return (*_loop_work(_loop_of(form), pr["reps"]), 0)
+    pos = args if form.order is None else [args[i] for i in form.order]
+    nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(out))
+    words = out[0].numel()
+    if k is F.dot:
+        a, b = pos
+        macs = 2 * b.numel() * (a.shape[1] if pr.get("trans_a") else a.shape[0])
+        return (nbytes, macs if b.dtype == torch.float32 else 0,
+                macs if b.dtype == torch.int8 else 0, macs if b.dtype == torch.bfloat16 else 0)
+    if k is F.copy:
+        src, offs = pos[0], (pos[1] if len(pos) > 1 else None)
+        made = len(F.copies(src.shape[0], offs, pr["mode"]))
+        moved = 2 * made * F.CP_ROWS[pr["mode"]] * F.ROW * 4  # in, then out
+        return (0 if offs is None else offs.numel() * 4) + moved, moved // 8, 0, 0
+    if k is F.gather:  # the distinct table words the indices reach
+        tbl, idx = pos
+        axis, span = pr.get("axis", 1), tbl.shape[pr.get("axis", 1)]
+        ix = idx.long()
+        ix = torch.where(ix < 0, ix + span, ix)
+        ok = (ix >= 0) & (ix < span)
+        other = torch.arange(idx.shape[1 - axis], device=ix.device)
+        other = other[:, None] if axis == 1 else other[None, :]
+        flat = ix * tbl.shape[1] + other if axis == 0 else other * tbl.shape[1] + ix
+        reached = torch.unique(flat[ok]).numel()
+        return nbytes - tbl.numel() * 4 + reached * 4, words, 0, 0
+    if k is F.onehot:
+        ops = {F.OH_SCATTER: pos[0].numel() * 8 + words * 8, F.OH_GATHER_I8: words,
+               F.OH_SCATTER_SUM: pos[0].numel() + words}.get(pr["mode"], words * 12)
+        if pr["mode"] in (F.OH_GATHER_I8, F.OH_GATHER_PLANES, F.OH_GATHER_BF16):
+            pool, ix = pos[0], pos[1].long().reshape(-1)  # the pool rows reached
+            rows = torch.unique(ix[(ix >= 0) & (ix < pool.shape[0])]).numel()
+            row_bytes = pool.shape[1] * pool.element_size()
+            nbytes += (rows - pool.shape[0]) * row_bytes
+        return nbytes, ops, 0, 0
+    per = {F.roll: 2, F.scalar: max(pr.get("trips", 0), 1)}.get(k, 1)
+    return nbytes, words * per, 0, 0
+
+
+def _v6_work(probe, reps):
+    """(bytes, 32-bit operations, 0) a v6 loop run must move and do: each
+    input word it needs read once (the stream's words a body's windows
+    reach, at most the stream), its outputs written once; the operations a
+    lane a loop (counted from the TPU body's steps, the port's checksum
+    adds left out)."""
+    from webgraph_tpu_torch.probes import loops as L
+
+    k, tile = probe.kernel, 4096
+    if k is L.v6_trip:  # 8 sub-steps of ~30 operations
+        return sum(a.nbytes for a in probe.arrays) + 4 + 6 * tile, reps * 1024 * 8 * 30, 0
+    if k is L.v6_fetch:  # the planes' selected rows, idx, the gathered slab words
+        r0 = probe.arrays[1]
+        rows = sum(len(set(r0[g].tolist())) for g in range(r0.shape[0]))
+        need = rows * 128 * 2 + r0.nbytes + probe.arrays[3].nbytes * 2 + 4
+        return need + 4 * (reps + 1), reps * (128 * 128 * 8 + 1024 * 128 * 2), 0
+    x = probe.arrays[0]
+    body = probe.params["body"]
+    reach = {"A": 1024 * 32, "B": 1024 * 128 * reps, "C": 1024 * 128 * reps,
+             "D": 32 * 1024 * reps, "D2": 32 * 1024 * reps, "E": 1024 * 9,
+             "F": 8 * (128 + 31)}[body]
+    # A: the 32 adds of + i and the carry's add
+    per = {"A": 33, "B": 384, "C": 384, "D": 96, "D2": 96, "E": 40, "F": 5}[body]
+    return min(reach, x.size) * 4 + 4 + 2 * tile, reps * 1024 * per, 0
+
+
+def _body_library(probe, args):
+    """(ms, note) of one PyTorch call that computes one rep of a
+    ``probe_body_loop`` body (median of 5 by CUDA events), checked first
+    against the kernel's first rep; (None, note) where no single call
+    does."""
+    import torch
+
+    from webgraph_tpu_torch.probes import loops as L
+    from webgraph_tpu_torch.timing import cuda_ms
+
+    x, body = args[0], probe.params["body"]
+    i = int(args[1][0, 0])  # rep 0's i; the carry is 0
+    out1 = probe.call(args, 1)[0].long().reshape(1024)
+    if body == "A":
+        buf = torch.empty((32, 1024), dtype=x.dtype, device=x.device)
+        lib = (lambda: torch.add(x[:, :32].t(), i, out=buf))
+        note = "torch.add(x[:, :32].t(), i, out=): one rep's transpose"
+        got = lib()[0].long()
+    elif body in ("B", "C"):
+        base = i % (L.LW - 128)  # the clip never reaches: base + 127 < LW
+        lib = (lambda: x.narrow(1, base, 128).clone())
+        note = "x.narrow(1, base, 128).clone(): one rep's window"
+        w = lib().long()
+        got = w[:, 0] + (w[:, 31] if body == "B" else 0)
+    elif body == "D":
+        base = i % (L.LW - 64)
+        lib = (lambda: x.narrow(0, base, 32).clone())
+        note = "x.narrow(0, base, 32).clone(): one rep's 32 rows"
+        g = lib().long()
+        got = g[0] + g[31]
+    elif body == "D2":  # rep 0's per-lane bases (the carry is 0)
+        base = torch.full((1, 1024), i % (L.LW - 64), dtype=torch.long, device=x.device)
+        idx = torch.clamp(torch.arange(32, device=x.device)[:, None] + base, 0, L.LW - 1)
+        lib = (lambda: torch.gather(x, 0, idx))
+        note = "torch.gather(x, 0, idx): one rep's 32 rows a lane"
+        g = lib().long()
+        got = g[0] + g[31]
+    else:
+        return None, "none: no single PyTorch call computes it"
+    check(torch.equal(out1, got), f"{note} differs from {probe.name}'s first rep")
+    return cuda_ms(lib, 5), note
+
+
+def _form_library(form, args, out):
+    """(ms, note) of one PyTorch call that computes ``form`` (or, for a
+    loop, one trip of it), checked against the kernel's output first;
+    (None, note) where no single call does."""
+    import torch
+
+    from webgraph_tpu_torch.probes import forms as F
+    from webgraph_tpu_torch.probes import loops as L
+    from webgraph_tpu_torch.timing import cuda_ms
+
+    k, pr = form.kernel, form.params
+    if k in (L.gather_loop, L.transpose_loop):
+        return _loop_library(_loop_of(form), args)
+    pos = args if form.order is None else [args[i] for i in form.order]
+    lib, note, want = None, None, out[0]
+    if k is F.gather:
+        tbl, idx = pos
+        ix = idx.long()
+        lib, note = (lambda: torch.gather(tbl, pr.get("axis", 1), ix)), "torch.gather"
+    elif k is F.relayout:
+        x = pos[0]
+        if pr["mode"] == F.RL_COPY:
+            shape = pr["shape"]
+            if x.numel() == torch.Size(shape).numel():
+                lib, note = (lambda: x.reshape(shape).clone()), "reshape(...).clone()"
+            else:
+                lib, note = (lambda: x.expand(shape).contiguous()), "expand(...).contiguous()"
+        elif pr.get("col") or pr.get("width", x.shape[0]) != x.shape[0]:
+            pad = (pr["col"], pr["width"] - pr["col"] - x.shape[0])
+            lib, note = (lambda: torch.nn.functional.pad(x.t(), pad)), "F.pad(x.t(), ...)"
+        else:
+            lib, note = (lambda: x.t().contiguous()), "x.t().contiguous()"
+    elif k is F.roll and pr["mode"] == F.RO_AXIS0:
+        x, sh = pos[0], int(pos[1][0])
+        lib, note = (lambda: torch.roll(x, sh, 0)), "torch.roll"
+    elif k is F.dot:
+        a, b = pos
+        ta = a.t() if pr.get("trans_a") else a
+        if b.dtype == torch.int8:
+            lib, note = (lambda: torch._int_mm(ta, b)), "torch._int_mm"
+        elif b.dtype == torch.float32:
+            lib, note = (lambda: torch.matmul(ta, b)), "torch.matmul"
+        else:
+            lib, note = (lambda: torch.mm(ta, b, out_dtype=torch.float32)), \
+                "torch.mm(out_dtype=float32)"
+        try:
+            lib()
+        except (RuntimeError, TypeError) as exc:  # shape rules, or no out_dtype
+            return None, f"none: {note} refuses these operands ({type(exc).__name__})"
+    elif k is F.onehot and pr["mode"] in (F.OH_GATHER_I8, F.OH_GATHER_PLANES, F.OH_GATHER_BF16):
+        pool, idx = pos[0], pos[1].reshape(-1).long()
+        lib, note = (lambda: torch.index_select(pool, 0, idx)), "torch.index_select"
+    elif k is F.onehot:
+        src, idx = pos[0], pos[1].reshape(-1).long()
+        if pr["mode"] == F.OH_SCATTER:
+            base = torch.zeros((pr["rows"], 128), dtype=torch.int32, device=src.device)
+            lib = (lambda: base.clone().index_add_(0, idx, src))
+            note = "index_add_ of the int32 rows (equal on the script's inputs only)"
+        else:
+            vals = src.reshape(-1).to(torch.bfloat16).float()
+            base = torch.zeros(pr["rows"], dtype=torch.float32, device=src.device)
+            lib = (lambda: base.clone().index_add_(0, idx, vals))
+            note = "index_add_ of the bf16 values: the row sums, before the broadcast"
+            want = out[0][:, 0]
+    elif k is F.copy and pr["mode"] != F.CP_PREFETCH:
+        # into a buffer holding UNWRITTEN, as the wrapper's output does; the
+        # offset is read on the host once, before the timed calls
+        src = pos[0]
+        buf = torch.full_like(out[0], L.UNWRITTEN)
+        if pr["mode"] == F.CP_DMA:
+            frm, n = int(pos[1][0]), F.CP_ROWS[F.CP_DMA]
+            dst = buf[frm + 8:frm + 8 + n]
+            lib = (lambda: torch.mul(src[frm:frm + n], 2, out=dst))
+            note = "torch.mul(rows, 2, out=) at the offset"
+        else:
+            lib = (lambda: buf[0].copy_(src.reshape(-1)))
+            note = "Tensor.copy_ of the flattened rows into row 0"
+        lib()
+        check(torch.equal(buf, want), f"{note} differs from {form.name}'s output")
+        return cuda_ms(lib, 5), note
+    if lib is None:
+        return None, "none: no single PyTorch call computes it"
+    got = lib()
+    check(torch.equal(got.to(want.dtype), want),
+          f"{note} differs from {form.name}'s output")
+    return cuda_ms(lib, 5), note
+
+
+def phase_form_probes():
+    """The single-shot capability forms and the streaming decoder's probes
+    (``webgraph_tpu_torch/probes``: ``caps``, ``bisect``, ``bisect2``,
+    ``v6``, ``v6b``, the counterparts of the JAX package's
+    ``scripts/pallas_caps_probe.py``, ``pallas_bisect_probe.py``,
+    ``pallas_bisect2.py``, ``v6_probe.py`` and ``v6_probe2.py``; the seven
+    kernels of ``csrc/forms.cu`` and five of ``csrc/loops.cu``: the three v6
+    kernels, and :data:`FORM_LOOP_KERNELS` for bisect2's two loops) on the
+    scripts' inputs at their on-chip sizes, none cut (P3 65,536 trips,
+    fn200's 20 calls, ``K`` 512).  The probe path is each module's
+    ``run("cuda")`` with every launch count reset just before and read
+    just after; each form is held to the script's own check there.  Then each form is held to its
+    plain version exactly (dtypes too), each loop run at
+    :data:`LOOP_PLAIN_REPS` loops or fewer, each kernel's own device time
+    traced (None where every trace dropped its records), its bound computed
+    (:func:`_form_work`, :func:`_v6_work`) and, where one PyTorch call
+    computes the form or one rep of a loop, that call timed
+    (:func:`_form_library`, :func:`_body_library`).  Returns each kernel's
+    row, its runs under ``"runs"``; main() adds the rows of
+    :data:`FORM_LOOP_KERNELS` to phase_loop_probes'."""
+    import torch
+
+    from webgraph_tpu_torch.probes import bisect, bisect2, caps, v6, v6b
+    from webgraph_tpu_torch.probes import forms as F
+    from webgraph_tpu_torch.probes import loops as L
+    from webgraph_tpu_torch.timing import NoWholeRun, kernel_ms
+
+    dev = torch.device("cuda")
+    wrappers = {**F.KERNELS, **L.V6_KERNELS, **{k: L.KERNELS[k] for k in FORM_LOOP_KERNELS}}
+    modules = {"caps": caps, "bisect": bisect, "bisect2": bisect2, "v6": v6, "v6b": v6b}
+    for w in wrappers.values():
+        w.launches = 0
+    res = {m: M.run("cuda") for m, M in modules.items()}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print("form probe path launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(all(v >= 1 for v in launches.values()),
+          f"a form probe kernel was not launched on the probe path: {launches}")
+    rows = {k: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "device_ms_at_plain_reps": 0.0, "reps": 0, "plain_reps": 0,
+                "launches": launches[k], "library_ms": None, "library_note": None,
+                "runs": {}} for k in wrappers}
+
+    def device_time(fn, kernel, n_launch, what):
+        try:  # a measurement only: the trace may drop a kernel's records
+            return kernel_ms(fn, 5, (kernel,))[kernel] * n_launch
+        except NoWholeRun as exc:
+            print(f"{what}: device time not measured ({exc})")
+            return None
+
+    def add(kernel, what, one, err, lib_ms, note):
+        agg = rows[kernel]
+        agg["runs"][what] = one
+        for key in ("ms", "plain_ms", "bound_ms", "device_ms_at_plain_reps"):
+            v = one[key]
+            agg[key] = None if v is None or agg[key] is None else agg[key] + v
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        agg["reps"] += one["reps"]
+        agg["plain_reps"] += one["plain_reps"]
+        if agg["library_ms"] is None and lib_ms is not None:
+            agg["library_ms"], agg["library_note"] = lib_ms, f"{what}: {note}"
+
+    for m, M in modules.items():
+        for f in (M.forms() if hasattr(M, "forms") else ()):
+            r = res[m][f.name]
+            what = f"{m}/{f.name}"
+            check(r["ok"] is not False, f"{what}: {r['kernel']} fails the script's check")
+            args = f.tensors(dev)
+            out = f.call(args)
+            err = _exact(out, f.call(args, plain=True))
+            check(err == 0, f"{what}: {r['kernel']} differs from its plain version "
+                            f"(max |err| {err})")
+            _, plain_ms = _events_ms(lambda: f.call(args, plain=True))
+            torch.cuda.synchronize()
+            device = device_time(lambda: f.call(args), r["kernel"], 1, what)
+            bound_ms, bound_by = _bound(*_form_work(f, args, out))
+            lib_ms, note = _form_library(f, args, out)
+            print(f"{what}: {r['kernel']} exact vs plain and the script's check "
+                  f"({r['ok']}); {r['ms']:.4f} ms, device "
+                  + ("not measured" if device is None else f"{device:.4f} ms")
+                  + f", bound {bound_ms:.6f} ms ({bound_by}), plain {plain_ms:.4f} ms"
+                  + ("" if lib_ms is None else f"; {note} {lib_ms:.4f} ms"))
+            trips = f.params.get("reps", 1)  # bisect2's loops: their trips
+            add(r["kernel"], what, {
+                "reps": trips, "plain_reps": trips, "ms": r["ms"],
+                "device_ms_at_plain_reps": device,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "script_check": r["ok"], "library_ms": lib_ms}, err, lib_ms, note)
+        for p in (M.probes() if hasattr(M, "probes") else ()):
+            r = res[m][p.name]
+            what = f"{m}/{p.name}"
+            args = p.tensors(dev)
+            n = min(r["reps"], LOOP_PLAIN_REPS)
+            err = _exact(p.call(args, n), p.call(args, n, plain=True))
+            check(err == 0, f"{what}: {r['kernel']} differs from its plain version "
+                            f"(max |err| {err})")
+            _, plain_ms = _events_ms(lambda: p.call(args, n, plain=True))
+            torch.cuda.synchronize()
+            calls = n if p.kernel is L.v6_fetch else 1  # fn200: a launch a call
+            device = device_time(lambda: p.call(args, n), r["kernel"], calls, what)
+            bound_ms, bound_by = _bound(*_v6_work(p, r["reps"]))
+            lib_ms, note = (_body_library(p, args) if p.kernel is L.body_loop
+                            else (None, "none: no single PyTorch call computes it"))
+            per_rep = L.cost(r).strip()
+            print(f"{what}: {r['kernel']} exact vs plain at {n}; {r['reps']} reps "
+                  f"{r['ms']:.4f} ms ({per_rep}), bound {bound_ms:.6f} ms ({bound_by}), "
+                  f"plain {plain_ms:.4f} ms at {n}"
+                  + ("" if lib_ms is None else f"; {note} {lib_ms:.4f} ms a call"))
+            add(r["kernel"], what, {
+                "reps": r["reps"], "script_reps": p.reps, "plain_reps": n, "ms": r["ms"],
+                "per_rep": per_rep, "device_ms_at_plain_reps": device, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms},
+                err, lib_ms, note)
     for agg in rows.values():
         worst = max(agg["runs"].values(), key=lambda x: x["bound_ms"])
         agg["bound_by"] = worst["bound_by"]
@@ -1651,6 +2044,7 @@ def main():
     probe = timed(phase_k2_probe)
     probes = timed(phase_probes)
     loop_rows = timed(phase_loop_probes)
+    form_rows = timed(phase_form_probes)
     with tempfile.TemporaryDirectory() as tmp:
         timed(phase_k1_small, tmp)
         t0 = time.perf_counter()
@@ -1736,10 +2130,29 @@ def main():
             "library_ms": r["library_ms"], "library_note": r["library_note"]})
     # the in-loop primitive probes: each run on the probe path of
     # phase_loop_probes
+    for name in FORM_LOOP_KERNELS:  # bisect2's loops ran on the form probe path
+        r, f = loop_rows[name], form_rows.pop(name)
+        for key in ("ms", "plain_ms", "bound_ms", "device_ms_at_plain_reps"):
+            r[key] = None if r[key] is None or f[key] is None else r[key] + f[key]
+        for key in ("launches", "reps", "plain_reps"):
+            r[key] += f[key]
+        r["max_abs_err"] = max(r["max_abs_err"], f["max_abs_err"])
+        r["runs"].update(f["runs"])
+        r["bound_by"] = max(r["runs"].values(), key=lambda x: x["bound_ms"])["bound_by"]
     for name, replaces in LOOP_REPLACES.items():
         r = loop_rows[name]
         kernels.append({
             **row(name, "webgraph_tpu_torch/csrc/loops.cu", replaces, r,
+                  **{k: r[k] for k in ("reps", "plain_reps",
+                                       "device_ms_at_plain_reps", "runs")}),
+            "library_ms": r["library_ms"], "library_note": r["library_note"]})
+    # the single-shot forms and the streaming decoder's probes: each run on
+    # the probe path of phase_form_probes
+    for name, replaces in FORM_REPLACES.items():
+        r = form_rows[name]
+        src = "forms.cu" if name.startswith("probe_form") else "loops.cu"
+        kernels.append({
+            **row(name, f"webgraph_tpu_torch/csrc/{src}", replaces, r,
                   **{k: r[k] for k in ("reps", "plain_reps",
                                        "device_ms_at_plain_reps", "runs")}),
             "library_ms": r["library_ms"], "library_note": r["library_note"]})

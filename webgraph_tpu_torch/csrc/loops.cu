@@ -12,7 +12,8 @@
 //                           perf.probe_rowstore :157
 //   probe_gather_loop     a whole take_along_axis a trip
 //                           timing5.gather_loop :99, bisect3.gather_inloop_timed :110,
-//                           perf.probe_replicated :61, perf.probe_ownrow :128
+//                           perf.probe_replicated :61, perf.probe_ownrow :128,
+//                           bisect2.gather_in_loop :93
 //   probe_dot_loop        an int8 product a rep: prebaked on the tensor cores
 //                         (mma.sync m16n8k32), or against a one-hot matrix
 //                           timing5.matmul_loop :125, bisect4.matmul_inloop :38
@@ -20,7 +21,7 @@
 //                           bisect3.refill_variant :134, perf.probe_onehot :89
 //   probe_transpose_loop  a whole (T, 1024) -> (1024, T) transpose a rep
 //                           timing5.transpose_loop :158, bisect4.transpose_inloop :69,
-//                           perf.probe_transpose :184
+//                           perf.probe_transpose :184, bisect2.transpose_in_loop :72
 //   probe_copy_loop       an (8, 1024) slice copied into shared memory a rep by a
 //                         TMA bulk copy completing on an mbarrier
 //                           timing5.dma_loop :178, bisect4.dma_inloop :87
@@ -28,6 +29,18 @@
 //                           bisect3.stack_select_refill :193
 //   probe_jframe          prefixes of the slab compaction (composite J)
 //                           bisect3.j_part :232, bisect4.j_frame :110
+//
+// and three more for the streaming decoder's primitives of scripts/v6_probe.py
+// and v6_probe2.py:
+//
+//   probe_v6_trip         the state machine's trip: 8 sub-steps of a queue
+//                         row select, window shift, merge selects, ab append
+//                           v6.probe_trip :71
+//   probe_v6_fetch        a one-hot stream fetch of 8 groups and a 32-chunk
+//                         slab gather, summed (one call of fn200's body)
+//                           v6.probe_fetch :140
+//   probe_body_loop       the fetch body's primitives a rep (bodies A-F, D2)
+//                           v6_probe2.run_loop :17, bodies :72-155
 //
 // Every kernel is one block of 1,024 threads, a thread a lane, on one SM, as
 // csrc/probes.cu's composite probes are, so that a per-trip cost compares with
@@ -184,12 +197,14 @@ enum : int {
   GL_ROWS = 0,  // (N, 128), idx[n][c] = (c + carry[0][c]) & 127, carry & 0xFFFF (G)
   GL_REPL = 1,  // (8, W), idx[r][w] = (w + carry[r][0]) % W, carry & 0x7FFFFFFF (A)
   GL_OWN = 2,   // (1024, T), idx[n][t] = (t + carry[n]) % T, carry & 0x7FFFFFFF (C)
+  GL_COL = 3,   // (N, 128), idx[n][c] = carry[0][c] % 128, carry & 0xFFFF (bisect2)
 };
 
 // A trip gathers the whole (rows, cols) take_along_axis of the table; the
 // lane's own element of the script's slice feeds its carry, and every
 // gathered word its checksum.  G: lane (r, c) gathers rows r, r + 8, ... of
-// column c, its index from lane (0, c) through shared memory.  A: lane (r, c)
+// column c, its index from lane (0, c) through shared memory (GL_COL the
+// same without the + c).  A: lane (r, c)
 // gathers columns c, c + 128, ... of row r, its index from lane (r, 0).  C: a
 // warp gathers its 32 lanes' rows one after the other, each row by all 32
 // threads (coalesced); the row's word 0 goes back to its lane by a shuffle.
@@ -225,11 +240,13 @@ __global__ void __launch_bounds__(TILE)
     }
   } else {
     for (int t = 0; t < reps; ++t) {
-      if (mode == GL_ROWS ? r == 0 : c == 0) key[mode == GL_ROWS ? c : r] = carry;
+      const bool by_col = mode == GL_ROWS || mode == GL_COL;
+      if (by_col ? r == 0 : c == 0) key[by_col ? c : r] = carry;
       __syncthreads();
       uint32_t val = 0u;
-      if (mode == GL_ROWS) {
-        const int col = static_cast<int>((static_cast<uint32_t>(c) + key[c]) & 127u);
+      if (by_col) {  // & 127 is the floor modulo 128 of an int32
+        const uint32_t k = mode == GL_ROWS ? static_cast<uint32_t>(c) + key[c] : key[c];
+        const int col = static_cast<int>(k & 127u);
 #pragma unroll 8
         for (int n = r; n < rows; n += 8) {
           const uint32_t w = staged(st, tbl, nstage, n * 128 + col);
@@ -419,12 +436,18 @@ __global__ void __launch_bounds__(TILE)
 }
 
 // ---------------------------------------------------------------- transpose loop
-// Each rep the whole x (T, 1024) -> xt (1024, T) (+ carry[0][0] with addc), in
-// 32 x 32 tiles through shared memory (a 32 x 33 tile a warp: conflict-free
-// both ways), rows read and written 128 bytes a warp; warp w takes the tiles
-// of x's columns 32 w .. 32 w + 31.  Then lane (r, c) reads xt[r][c] back:
-// addc 0: carry = (carry + xt[r][c] + t) & 0x7FFF (timing5, bisect4);
-// addc 1: carry += xt[r][c] (perf E).  chk sums every word a thread wrote.
+enum : int {
+  TL_MASK = 0,    // carry = (carry + xt[r][c] + t) & 0x7FFF (timing5, bisect4)
+  TL_ADDC = 1,    // xt = x.T + carry[0][0], carry += xt[r][c] (perf E)
+  TL_NOMASK = 2,  // carry = carry + xt[r][c] + t (bisect2)
+};
+
+// Each rep the whole x (T, 1024) -> xt (1024, T) (+ carry[0][0] with
+// TL_ADDC), in 32 x 32 tiles through shared memory (a 32 x 33 tile a warp:
+// conflict-free both ways), rows read and written 128 bytes a warp; warp w
+// takes the tiles of x's columns 32 w .. 32 w + 31.  Then lane (r, c) reads
+// xt[r][c] back into its carry as addc says.  chk sums every word a thread
+// wrote.
 __global__ void __launch_bounds__(TILE)
     probe_transpose_loop(const int32_t* __restrict__ x, int t_rows, int addc, int reps,
                          uint32_t* __restrict__ xt, int32_t* __restrict__ out,
@@ -438,7 +461,7 @@ __global__ void __launch_bounds__(TILE)
   __syncthreads();
   const int ntiles = (t_rows / 32) * 32;
   for (int t = 0; t < reps; ++t) {
-    const uint32_t cc = addc ? s_c00 : 0u;
+    const uint32_t cc = addc == TL_ADDC ? s_c00 : 0u;
     for (int u = warp; u < ntiles; u += 32) {
       const int ti = u >> 5, tj = u & 31;
       const int32_t* src = x + (ti * 32) * TILE + tj * 32 + lane;
@@ -456,8 +479,13 @@ __global__ void __launch_bounds__(TILE)
     }
     __syncthreads();
     const uint32_t corner = xt[(l >> 7) * t_rows + (l & 127)];
-    carry = addc ? carry + corner : (carry + corner + static_cast<uint32_t>(t)) & 0x7FFFu;
-    if (addc && l == 0) s_c00 = carry;
+    if (addc == TL_ADDC) {
+      carry += corner;
+      if (l == 0) s_c00 = carry;
+    } else {
+      carry += corner + static_cast<uint32_t>(t);
+      if (addc == TL_MASK) carry &= 0x7FFFu;
+    }
     __syncthreads();
   }
   out[l] = wrap(carry);
@@ -646,6 +674,230 @@ __global__ void __launch_bounds__(TILE)
   chk[l] = wrap(sum);
 }
 
+// ---------------------------------------------------------------- v6 trip
+constexpr int V6_QD = 32;  // queue rows of the trip
+constexpr int V6_U = 8;    // sub-steps a trip
+constexpr int V6_SMEM = V6_QD * TILE * 4;
+
+// Each lane's state (acc, cur, w0, w1, ap, ab0-ab3) in registers; the queue
+// (32, 1,024) in shared memory, so sel_row of row cur & 31 is one conflict-free
+// load of the lane's column.  The window shift w1 >> (32 - sh) is guarded at
+// sh == 0, a shift by 32 (XLA gives 0; C++ leaves it undefined); the even
+// sub-steps update w0 and w1 (u % 2 == 0 is static).  out[0] is the wrapping
+// sum of acc over the lanes (the script's output); state gets ab0-ab3, w0, w1,
+// which the script never reads.
+__global__ void __launch_bounds__(TILE)
+    probe_v6_trip(const int32_t* __restrict__ w, const int32_t* __restrict__ salt, int trips,
+                  int32_t* __restrict__ out, int32_t* __restrict__ state) {
+  extern __shared__ uint32_t q[];
+  __shared__ uint32_t part[32];
+  const int l = threadIdx.x, lane = l & 31, warp = l >> 5;
+  for (int e = l; e < V6_QD * TILE; e += TILE) q[e] = static_cast<uint32_t>(w[e]);
+  __syncthreads();
+  uint32_t acc = static_cast<uint32_t>(salt[0]), cur = 0u, w0 = 0u, w1 = 0u, ap = 0u;
+  uint32_t ab0 = 0u, ab1 = 0u, ab2 = 0u, ab3 = 0u;
+  for (int t = 0; t < trips; ++t) {
+#pragma unroll
+    for (int u = 0; u < V6_U; ++u) {
+      const uint32_t wv = q[(cur & (V6_QD - 1)) * TILE + l];
+      const uint32_t sh = cur & 31u;
+      const uint32_t hi = (w0 << sh) | (sh > 0u ? w1 >> (32u - sh) : 0u);
+      const int32_t v = static_cast<int32_t>(hi >> 24);
+      const int32_t ln = (v & 7) + 1;
+      if (u % 2 == 0) {
+        w0 = hi;
+        w1 ^= wv;
+      }
+      const int32_t eh = wrap(acc) & 255, ih = wrap(cur) & 255;
+      const int32_t emit = min(min(v, eh), ih);
+      cur += (v <= eh && v <= ih) ? 1u : 2u;
+      const uint32_t slot = ap & 3u, em = static_cast<uint32_t>(emit);
+      ab0 = slot == 0u ? em : ab0;
+      ab1 = slot == 1u ? em : ab1;
+      ab2 = slot == 2u ? em : ab2;
+      ab3 = slot == 3u ? em : ab3;
+      ap += 1u;
+      acc += em + static_cast<uint32_t>(ln);
+    }
+  }
+  const uint32_t st[6] = {ab0, ab1, ab2, ab3, w0, w1};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) state[i * TILE + l] = wrap(st[i]);
+  uint32_t s = acc;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  if (lane == 0) part[warp] = s;
+  __syncthreads();
+  if (l == 0) {
+    uint32_t total = 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) total += part[i];
+    out[0] = wrap(total);
+  }
+}
+
+// ---------------------------------------------------------------- v6 fetch
+constexpr int V6_GROUPS = 8;    // stream groups of the one-hot fetch
+constexpr int V6_ROWS = 384;    // stream rows a group
+constexpr int V6_SLAB_W = 4096; // slab words a row (32 chunks of 128)
+
+// One call of fn200's body: (a) acc (128, 128), acc[row][c] = sum over the
+// groups g of planes[g][r0[g][row]][c] in float32 (bf16 planes; a row index
+// outside the group adds nothing): lane (r, c) takes column c of rows r, r + 8,
+// ...; (b) got (1024, 128), got[n][j] = slab[n][idx[n][j]] for idx in [0, 4096),
+// else 0 (the 32-chunk select): warp w takes rows w, w + 32, ..., four words a
+// lane, the slab (16 MB) through L2.  r[call] = int(sum(acc)) + sum(got) + salt
+// + call, wrapping; sum(acc) is taken in float64 in a fixed order, exact where
+// the TPU's float32 sum is (the script's 131,072), then cut to int64's low word.
+__global__ void __launch_bounds__(TILE)
+    probe_v6_fetch(const uint16_t* __restrict__ planes, const int32_t* __restrict__ r0,
+                   const int32_t* __restrict__ slab, const int32_t* __restrict__ idx,
+                   const int32_t* __restrict__ salt, int call, int32_t* __restrict__ r) {
+  __shared__ double dpart[32];
+  __shared__ uint32_t upart[32];
+  const int l = threadIdx.x, lane = l & 31, warp = l >> 5, c = l & 127;
+  double dsum = 0.0;
+  for (int row = l >> 7; row < 128; row += 8) {
+    float a = 0.f;
+#pragma unroll
+    for (int g = 0; g < V6_GROUPS; ++g) {
+      const int k = __ldg(r0 + g * 128 + row);
+      if (k >= 0 && k < V6_ROWS)
+        a += __uint_as_float(static_cast<uint32_t>(__ldg(planes + (g * V6_ROWS + k) * 128 + c))
+                             << 16);
+    }
+    dsum += a;
+  }
+  uint32_t usum = 0u;
+  for (int n = warp; n < TILE; n += 32) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int32_t k = __ldg(idx + n * 128 + lane + 32 * p);
+      if (k >= 0 && k < V6_SLAB_W)
+        usum += static_cast<uint32_t>(__ldg(slab + static_cast<int64_t>(n) * V6_SLAB_W + k));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    dsum += __shfl_xor_sync(FULL, dsum, o);
+    usum += __shfl_xor_sync(FULL, usum, o);
+  }
+  if (lane == 0) {
+    dpart[warp] = dsum;
+    upart[warp] = usum;
+  }
+  __syncthreads();
+  if (l == 0) {
+    double d = 0.0;
+    uint32_t u = 0u;
+    for (int i = 0; i < 32; ++i) {
+      d += dpart[i];
+      u += upart[i];
+    }
+    const uint32_t a = static_cast<uint32_t>(static_cast<long long>(d));
+    r[call] = wrap(a + u + static_cast<uint32_t>(salt[0]) + static_cast<uint32_t>(call));
+  }
+}
+
+// ---------------------------------------------------------------- body loop
+// bodies of v6_probe2.py (probes/loops.py has the same values)
+enum : int {
+  BL_A = 0,   // (1024, 32) -> (32, 1024) transpose of words[:, :32] + i
+  BL_B = 1,   // the 128-word window at (acc[0][0] + i) % 1024 through the 9-chunk select,
+              // carry += out[l][0] + out[l][31] (to_regs(32))
+  BL_C = 2,   // the same window, carry += out[l][0]
+  BL_D = 3,   // rows (acc[0][0] + i) % 1088 + k, k < 32, of wordsT (1152, 1024)
+  BL_D2 = 4,  // the same at per-lane bases (acc_l * 7 + i) % 1088
+  BL_E = 5,   // place8: words[l][0:8] + i rolled to columns 8 pos .., pos = (words[l][8] + i) % 32
+  BL_F = 6,   // sel_row of 32 registers: words[r][c + idx] + idx, idx = (acc + i) & 31
+};
+constexpr int BL_LW = 1152;  // words a row of the stream (9 chunks of 128)
+
+// K reps over the (8, 128) carry from zeros, each rep's i = t + salt[0]; lane
+// l = 128 r + c.  Every word a body builds each rep enters the lane's checksum:
+// A the lane's 32 transposed words; B and C the window's rows, a warp reading
+// its 32 lanes' rows in turn, 32 words at a time (coalesced), the row's words 0
+// and 31 going back to its lane by a shuffle; D and D2 the lane's 32 gathered
+// rows of its column (coalesced); E the 8 placed values (the other 248 words of
+// the placed row are zeros); F the selected word.  B, C and D read acc[0][0]
+// through shared memory behind a block barrier.
+__global__ void __launch_bounds__(TILE)
+    probe_body_loop(const int32_t* __restrict__ x, const int32_t* __restrict__ salt, int mode,
+                    int reps, int32_t* __restrict__ out, int32_t* __restrict__ chk) {
+  __shared__ uint32_t s_a00;
+  const int l = threadIdx.x, lane = l & 31, warp = l >> 5, r = l >> 7, c = l & 127;
+  const uint32_t s0 = static_cast<uint32_t>(salt[0]);
+  const bool shared_base = mode == BL_B || mode == BL_C || mode == BL_D;
+  uint32_t acc = 0u, sum = 0u;
+  if (l == 0) s_a00 = 0u;
+  __syncthreads();
+  for (int t = 0; t < reps; ++t) {
+    const uint32_t i = static_cast<uint32_t>(t) + s0;
+    if (mode == BL_A) {
+      const int32_t* row = x + static_cast<int64_t>(l) * BL_LW;
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k) {
+        const uint32_t v = static_cast<uint32_t>(row[k]) + i;
+        sum += v;
+        if (k == 0) acc += v;
+      }
+    } else if (mode == BL_B || mode == BL_C) {
+      const int base = floor_mod(wrap(s_a00 + i), BL_LW - 128);
+      uint32_t mine = 0u;
+      for (int q = 0; q < 32; ++q) {
+        const int32_t* row = x + static_cast<int64_t>(warp * 32 + q) * BL_LW;
+        uint32_t v0 = 0u;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int col = min(max(base + lane + 32 * p, 0), BL_LW - 1);
+          const uint32_t v = static_cast<uint32_t>(row[col]);
+          sum += v;
+          if (p == 0) v0 = v;
+        }
+        const uint32_t first = __shfl_sync(FULL, v0, 0), last = __shfl_sync(FULL, v0, 31);
+        if (lane == q) mine = mode == BL_B ? first + last : first;
+      }
+      acc += mine;
+    } else if (mode == BL_D || mode == BL_D2) {
+      const int base = mode == BL_D ? floor_mod(wrap(s_a00 + i), BL_LW - 64)
+                                    : floor_mod(wrap(acc * 7u + i), BL_LW - 64);
+      uint32_t g0 = 0u, g31 = 0u;
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k) {
+        const int row = min(max(base + k, 0), BL_LW - 1);
+        const uint32_t v = static_cast<uint32_t>(x[row * TILE + l]);
+        sum += v;
+        if (k == 0) g0 = v;
+        if (k == 31) g31 = v;
+      }
+      acc += g0 + g31;
+    } else if (mode == BL_E) {
+      const int32_t* row = x + static_cast<int64_t>(l) * BL_LW;
+      const int pos = floor_mod(wrap(static_cast<uint32_t>(row[8]) + i), 32);
+      uint32_t v0 = 0u;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t v = static_cast<uint32_t>(row[k]) + i;
+        sum += v;
+        if (k == 0) v0 = v;
+      }
+      acc += pos == 0 ? v0 : 0u;
+    } else {  // BL_F
+      const uint32_t k = (acc + i) & 31u;
+      const uint32_t v = static_cast<uint32_t>(x[r * BL_LW + c + static_cast<int>(k)]) + k;
+      sum += v;
+      acc += v;
+    }
+    if (shared_base) {
+      __syncthreads();
+      if (l == 0) s_a00 = acc;
+      __syncthreads();
+    }
+  }
+  out[l] = wrap(acc);
+  chk[l] = wrap(sum);
+}
+
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
@@ -670,7 +922,7 @@ extern "C" int wgt_probe_lane_loop(const void* x, int flags, int rounds, int tri
 extern "C" int wgt_probe_gather_loop(const void* tbl, int rows, int cols, int mode,
                                      const void* carry0, int reps, int nstage, void* out,
                                      void* chk, void* stream) {
-  const bool ok = mode == GL_ROWS   ? cols == 128 && rows % 8 == 0
+  const bool ok = mode == GL_ROWS || mode == GL_COL ? cols == 128 && rows % 8 == 0
                   : mode == GL_REPL ? rows == 8 && cols % 128 == 0
                   : mode == GL_OWN  ? rows == TILE && cols % 32 == 0
                                     : false;
@@ -718,7 +970,7 @@ extern "C" int wgt_probe_plane_refill(const void* pages, int rows, int mode, con
 
 extern "C" int wgt_probe_transpose_loop(const void* x, int t_rows, int addc, int reps, void* xt,
                                         void* out, void* chk, void* stream) {
-  if (t_rows < 128 || t_rows % 32) return invalid();
+  if (t_rows < 128 || t_rows % 32 || addc < TL_MASK || addc > TL_NOMASK) return invalid();
   if (int rc = allow_smem(probe_transpose_loop, TR_SMEM)) return rc;
   probe_transpose_loop<<<1, TILE, TR_SMEM, as_stream(stream)>>>(
       static_cast<const int32_t*>(x), t_rows, addc, reps, static_cast<uint32_t*>(xt),
@@ -751,5 +1003,35 @@ extern "C" int wgt_probe_jframe(const void* x, const void* pre, int stage, int r
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(pre), stage, reps,
       static_cast<uint32_t*>(colT), static_cast<int32_t*>(pool), static_cast<int32_t*>(out),
       static_cast<int32_t*>(chk));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgt_probe_v6_trip(const void* w, const void* salt, int trips, void* out,
+                                 void* state, void* stream) {
+  if (trips < 0) return invalid();
+  if (int rc = allow_smem(probe_v6_trip, V6_SMEM)) return rc;
+  probe_v6_trip<<<1, TILE, V6_SMEM, as_stream(stream)>>>(
+      static_cast<const int32_t*>(w), static_cast<const int32_t*>(salt), trips,
+      static_cast<int32_t*>(out), static_cast<int32_t*>(state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgt_probe_v6_fetch(const void* planes, const void* r0, const void* slab,
+                                  const void* idx, const void* salt, int call, void* r,
+                                  void* stream) {
+  if (call < 0) return invalid();
+  probe_v6_fetch<<<1, TILE, 0, as_stream(stream)>>>(
+      static_cast<const uint16_t*>(planes), static_cast<const int32_t*>(r0),
+      static_cast<const int32_t*>(slab), static_cast<const int32_t*>(idx),
+      static_cast<const int32_t*>(salt), call, static_cast<int32_t*>(r));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgt_probe_body_loop(const void* x, const void* salt, int mode, int reps,
+                                   void* out, void* chk, void* stream) {
+  if (mode < BL_A || mode > BL_F || reps < 0) return invalid();
+  probe_body_loop<<<1, TILE, 0, as_stream(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(salt), mode, reps,
+      static_cast<int32_t*>(out), static_cast<int32_t*>(chk));
   return static_cast<int>(cudaGetLastError());
 }

@@ -101,6 +101,28 @@ _SIGNATURES = {
         "wgt_probe_stack_fetch": (_P, _I, _P, _P, _P),
         # x, pre, stage, reps, colT, pool, out, chk, stream
         "wgt_probe_jframe": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
+        # w, salt, trips, out, state, stream
+        "wgt_probe_v6_trip": (_P, _P, _I, _P, _P, _P),
+        # planes, r0, slab, idx, salt, call, r, stream
+        "wgt_probe_v6_fetch": (_P, _P, _P, _P, _P, _I, _P, _P),
+        # x, salt, mode, reps, out, chk, stream
+        "wgt_probe_body_loop": (_P, _P, _I, _I, _P, _P, _P),
+    },
+    "forms.cu": {
+        # tbl, rows, cols, idx, irows, icols, axis, out, stream
+        "wgt_probe_form_gather": (_P, _I, _I, _P, _I, _I, _I, _P, _P),
+        # x, rows, cols, mode, width, col, n_out, out, stream
+        "wgt_probe_form_relayout": (_P, _I, _I, _I, _I, _I, _L, _P, _P),
+        # x, rows, cols, shift, mode, out, stream
+        "wgt_probe_form_roll": (_P, _I, _I, _P, _I, _P, _P),
+        # a, b, m, k, n, dtype, trans_a, out, stream
+        "wgt_probe_form_dot": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+        # src, idx, nsrc, rows, mode, out, stream
+        "wgt_probe_form_onehot": (_P, _P, _I, _I, _I, _P, _P),
+        # src, src_rows, offs, mode, blocks, dst, dst_rows, stream
+        "wgt_probe_form_copy": (_P, _I, _P, _I, _I, _P, _I, _P),
+        # x, n, mode, trips, out, cnt, stream
+        "wgt_probe_form_scalar": (_P, _I, _I, _I, _P, _P, _P),
     },
 }
 SOURCES = tuple(_SIGNATURES)

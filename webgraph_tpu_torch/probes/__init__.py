@@ -17,20 +17,31 @@ package's TPU probe scripts, one module a script.
   ``scripts/pallas_timing5.py``, ``pallas_bisect4.py``, ``pallas_bisect3.py``,
   ``pallas_perf_probe.py``: primitives timed in a loop (trip recurrence,
   gather, int8 product, byte-plane refill, transpose, async copy, stack
-  fetch, compaction frame), on the eight kernel families of :mod:`.loops`.
+  fetch, compaction frame), on the eight kernel families of :mod:`.loops`;
+* :mod:`.caps`, :mod:`.bisect`, :mod:`.bisect2` —
+  ``scripts/pallas_caps_probe.py``, ``pallas_bisect_probe.py``,
+  ``pallas_bisect2.py``: single-shot forms (gathers, relayouts, rolls,
+  products, one-hot products, copies at device-held offsets, clz, a counted
+  loop), on the seven kernel families of :mod:`.forms`;
+* :mod:`.v6`, :mod:`.v6b` — ``scripts/v6_probe.py``, ``v6_probe2.py``: the
+  streaming decoder's primitives (two forms; the state machine's trip, the
+  stream fetch, the fetch body's primitives in a loop), on :mod:`.forms`
+  and three more kernels of :mod:`.loops`.
 
 Each module makes the script's inputs from the script's seeds, has a plain
 PyTorch version of each kernel and a wrapper that counts its launches (CPU
 tensors take the plain version; CUDA tensors launch the kernel or raise),
 and a ``main()`` for ``python -m webgraph_tpu_torch.probes.<name>``, which
 runs on the card unless ``--device cpu`` is given.  The kernels are in
-``csrc/probes.cu`` and, for :mod:`.loops`, ``csrc/loops.cu``.
+``csrc/probes.cu``, ``csrc/loops.cu`` (:mod:`.loops`) and ``csrc/forms.cu``
+(:mod:`.forms`).
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from webgraph_tpu_torch.kernels import _build
@@ -63,6 +74,17 @@ def launch(wrapper, entry: str, dev, *args):
         rc = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(entry, rc)
     wrapper.launches += 1
+
+
+def tensors(arrays, casts, dev):
+    """numpy ``arrays`` as tensors on ``dev``, array i cast to ``casts[i]``
+    where that is given and not None (e.g. bf16, which numpy lacks)."""
+    out = []
+    for i, a in enumerate(arrays):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        cast = casts[i] if i < len(casts) else None
+        out.append(t if cast is None else t.to(cast))
+    return out
 
 
 def device_of(name):

@@ -60,7 +60,7 @@ def probes(interpret: bool = False):
     n = CPU_REPS if interpret else REPS
     out = [L.Probe(name, L.dot_loop, ins[name], {"onehot": name in ("M3", "M4")},
                    n, "iter") for name in ("M1", "M2", "M3", "M4")]
-    out += [L.Probe(name, L.transpose_loop, ins[name], {"addc": False}, n, "iter")
+    out += [L.Probe(name, L.transpose_loop, ins[name], {"addc": L.TL_MASK}, n, "iter")
             for name in ("T128", "T512")]
     out.append(L.Probe("DMA", L.copy_loop, ins["DMA"], {}, n, "iter"))
     out += [L.Probe(f"Jv{v}", L.jframe, ins[f"Jv{v}"], {"stage": f"v{v}"},

@@ -10,18 +10,31 @@ one block of 1,024 threads:
   with the queue roll, slab row store and relayout of the merge trip; the
   VPU baseline; the row store;
 * :func:`gather_loop` (``probe_gather_loop``): a whole ``take_along_axis``
-  a trip (modes :data:`GL_ROWS`, :data:`GL_REPL`, :data:`GL_OWN`);
+  a trip (modes :data:`GL_ROWS`, :data:`GL_REPL`, :data:`GL_OWN`,
+  :data:`GL_COL`);
 * :func:`dot_loop` (``probe_dot_loop``): an int8 product a rep, prebaked
   (on the tensor cores) or against a one-hot matrix;
 * :func:`plane_refill` (``probe_plane_refill``): the byte-plane word refill
   and the byte-plane row gather;
 * :func:`transpose_loop` (``probe_transpose_loop``): a whole (T, 1024)
-  transpose a rep;
+  transpose a rep (the carry's modes :data:`TL_MASK`, :data:`TL_ADDC`,
+  :data:`TL_NOMASK`);
 * :func:`copy_loop` (``probe_copy_loop``): an (8, 1024) slice copied into
   shared memory a rep (a TMA bulk copy on an mbarrier);
 * :func:`stack_fetch` (``probe_stack_fetch``): a word of a lane's 128-row
   column stack;
-* :func:`jframe` (``probe_jframe``): prefixes of the slab compaction.
+* :func:`jframe` (``probe_jframe``): prefixes of the slab compaction;
+
+(:mod:`.bisect2`'s two loops run on :func:`gather_loop` and
+:func:`transpose_loop` too) and, for :mod:`.v6` and :mod:`.v6b` (``scripts/v6_probe.py``,
+``v6_probe2.py``):
+
+* :func:`v6_trip` (``probe_v6_trip``): the streaming decoder's trip, 8
+  sub-steps of a queue row select, window shift, merge selects and append;
+* :func:`v6_fetch` (``probe_v6_fetch``): one call of the one-hot stream
+  fetch and the 32-chunk slab gather, summed;
+* :func:`body_loop` (``probe_body_loop``): a fetch body's primitive a rep
+  (:data:`BODIES`).
 
 Each wrapper returns the script's (8, 128) output first, then what keeps
 the kernel's work alive: a checksum of every element its TPU body computes
@@ -40,7 +53,7 @@ import dataclasses
 import torch
 
 from webgraph_tpu_torch.probes import (M32, check, device_ms, device_of, launch,
-                                      parser, s32)
+                                      parser, s32, tensors)
 
 TILE = (8, 128)
 SLAB = 128                # the trip probes' colbuf rows
@@ -54,11 +67,19 @@ JMOD = JR * 128 - 256
 LL_RESHAPE, LL_QUEUE_HALF, LL_QUEUE_ODD, LL_STORE_V = 1, 2, 4, 8
 LL_STORE_T, LL_OUT_SLAB, LL_VPU, LL_ROWSTORE = 16, 32, 64, 128
 # probe_gather_loop's modes
-GL_ROWS, GL_REPL, GL_OWN = 0, 1, 2
+GL_ROWS, GL_REPL, GL_OWN, GL_COL = 0, 1, 2, 3
+# probe_transpose_loop's carry modes (its addc)
+TL_MASK, TL_ADDC, TL_NOMASK = 0, 1, 2
 # probe_plane_refill's modes
 PR_REFILL, PR_ROWS = 0, 1
 # probe_jframe's stages: bisect4's j_frame variants, then bisect3's j_part parts
 JF_STAGES = ("v0", "v1", "v2", "v3", "v4", "p0", "p1", "p2", "p3")
+V6_QD, V6_U = 32, 8            # the v6 trip's queue rows and sub-steps
+V6_GROUPS, V6_ROWS = 8, 384    # the v6 fetch's stream groups and rows a group
+V6_SLAB = (1024, 4096)         # its slab (32 chunks of 128 words a row)
+# probe_body_loop's bodies (v6_probe2's), and the stream's words a row
+BODIES = ("A", "B", "C", "D", "D2", "E", "F")
+LW = 1152
 
 
 def _tile(dev, fill=0):
@@ -156,8 +177,9 @@ def gather_loop_plain(table, carry0, mode: int, reps: int):
     if mode == GL_OWN:
         carry = carry.reshape(1024, 1)
     for _ in range(reps):
-        if mode == GL_ROWS:
-            vals = torch.gather(tbl, 1, (base + carry[:1, :128]) & 127)
+        if mode in (GL_ROWS, GL_COL):
+            key = carry[:1, :128] + (base if mode == GL_ROWS else 0)
+            vals = torch.gather(tbl, 1, torch.remainder(key, 128).expand(rows, 128))
             chk += vals.reshape(rows // 8, 8, 128).sum(0).reshape(1024)
             carry = (carry + vals[:8, :128]) & 0xFFFF
         elif mode == GL_REPL:
@@ -173,6 +195,7 @@ def gather_loop_plain(table, carry0, mode: int, reps: int):
 
 def _gather_ok(rows, cols, mode):
     return {GL_ROWS: cols == 128 and rows % 8 == 0,
+            GL_COL: cols == 128 and rows % 8 == 0,
             GL_REPL: rows == 8 and cols % 128 == 0,
             GL_OWN: rows == 1024 and cols % 32 == 0}.get(mode, False)
 
@@ -184,7 +207,8 @@ def gather_loop(table, carry0, mode: int, reps: int):
     128), every row at ``(c + carry[0][c]) & 127``, the carry & 0xFFFF),
     :data:`GL_REPL` (perf A: (8, W), row r at ``(w + carry[r][0]) % W``),
     :data:`GL_OWN` (perf C: (1024, T), row n at ``(t + carry_n) % T``, lane
-    n's carry from its row's word 0).  ``chk[l]`` sums the words thread l
+    n's carry from its row's word 0), :data:`GL_COL` (bisect2: as G at
+    ``carry[0][c] % 128``, no ``+ c``).  ``chk[l]`` sums the words thread l
     gathered: G rows r, r + 8, ... of column c; A columns c, c + 128, ... of
     row r; C columns lane, lane + 32, ... of the warp's 32 rows (l = 32 w +
     lane).  The first :data:`STAGE_WORDS` words of the flat table live in
@@ -340,7 +364,7 @@ plane_refill.launches = 0
 # ---------------------------------------------------------------- transpose loop
 
 
-def transpose_loop_plain(x, addc: bool, reps: int):
+def transpose_loop_plain(x, addc: int, reps: int):
     """Plain version of :func:`transpose_loop`."""
     dev = x.device
     t_rows = x.shape[0]
@@ -349,22 +373,25 @@ def transpose_loop_plain(x, addc: bool, reps: int):
     chk = torch.zeros(1024, dtype=torch.int64, device=dev)
     for t in range(reps):
         tr = xl.T
-        if addc:
+        if addc == TL_ADDC:
             tr = s32(tr + carry[:1, :1])
         chk += tr.reshape(32, 32, t_rows // 32, 32).sum((1, 2)).reshape(1024)
-        if addc:
+        if addc == TL_ADDC:
             carry = s32(carry + tr[:8, :128])
         else:
-            carry = (carry + tr[:8, :128] + t) & 0x7FFF
+            carry = s32(carry + tr[:8, :128] + t)
+            if addc == TL_MASK:
+                carry = carry & 0x7FFF
     return _done(carry, chk)
 
 
-def transpose_loop(x, addc: bool, reps: int):
+def transpose_loop(x, addc: int, reps: int):
     """``x`` int32 (T, 1024), T >= 128, T % 32 == 0 -> ``(out (8, 128), chk
     (1024,))``, int32: ``reps`` reps of the whole transpose ``tr = x.T``
-    (``+ carry[0][0]`` with ``addc``) into a scratch; then ``carry =
-    (carry + tr[:8, :128] + t) & 0x7FFF`` (timing5, bisect4) or, with
-    ``addc``, ``carry += tr[:8, :128]`` (perf E), from zeros.
+    (``+ carry[0][0]`` with :data:`TL_ADDC`) into a scratch; then, from
+    zeros, ``carry = (carry + tr[:8, :128] + t) & 0x7FFF`` (:data:`TL_MASK`:
+    timing5, bisect4), ``carry += tr[:8, :128]`` (:data:`TL_ADDC`: perf E)
+    or ``carry + tr[:8, :128] + t`` (:data:`TL_NOMASK`: bisect2).
     ``chk[32 w + lane]`` sums ``tr[32 w + i][32 j + lane]`` over i, j and
     the reps.  CPU tensors take :func:`transpose_loop_plain`; CUDA tensors
     launch ``probe_transpose_loop``."""
@@ -375,11 +402,13 @@ def transpose_loop(x, addc: bool, reps: int):
     check("transpose_loop", "x", x, torch.int32, (t_rows, 1024), dev)
     if t_rows < 128 or t_rows % 32:
         raise ValueError("transpose_loop: x needs a multiple of 32 rows, >= 128")
+    if addc not in (TL_MASK, TL_ADDC, TL_NOMASK):
+        raise ValueError(f"transpose_loop: no carry mode {addc}")
     xt = torch.empty((1024, t_rows), dtype=torch.int32, device=dev)
     out = torch.empty(TILE, dtype=torch.int32, device=dev)
     chk = torch.empty(1024, dtype=torch.int32, device=dev)
     launch(transpose_loop, "wgt_probe_transpose_loop", dev, x.data_ptr(), t_rows,
-           int(bool(addc)), reps, xt.data_ptr(), out.data_ptr(), chk.data_ptr())
+           int(addc), reps, xt.data_ptr(), out.data_ptr(), chk.data_ptr())
     return out, chk
 
 
@@ -548,14 +577,229 @@ def jframe(x, pre, stage: str, reps: int):
 
 jframe.launches = 0
 
+
+# ---------------------------------------------------------------- v6 trip
+
+
+def _sel_row(rows, idx):
+    """The scripts' ``sel_row``: ``rows[idx]`` a lane by a tree of selects
+    on the bits of ``idx``."""
+    level, bit = list(rows), 0
+    while len(level) > 1:
+        level = [torch.where(((idx >> bit) & 1) > 0, level[i + 1], level[i])
+                 for i in range(0, len(level), 2)]
+        bit += 1
+    return level[0]
+
+
+def v6_trip_plain(w, salt, reps: int):
+    """Plain version of :func:`v6_trip`: the script's sub-steps on int64
+    tensors (int32 values; the window words as uint32)."""
+    dev = w.device
+    q = [w[i].long() & M32 for i in range(V6_QD)]
+    acc = _tile(dev) + salt.long().reshape(1, 1)
+    cur, w0, w1, ap = _tile(dev), _tile(dev), _tile(dev), _tile(dev)
+    ab = [_tile(dev) for _ in range(4)]
+    for _ in range(reps):
+        for u in range(V6_U):
+            wv = _sel_row(q, cur & (V6_QD - 1))
+            sh = cur & 31
+            hi = ((w0 << sh) & M32) | torch.where(sh > 0, w1 >> (32 - sh), 0)
+            v = hi >> 24
+            ln = (v & 7) + 1
+            if u % 2 == 0:
+                w0, w1 = hi, w1 ^ wv
+            eh, ih = acc & 255, cur & 255
+            emit = torch.minimum(torch.minimum(v, eh), ih)
+            cur = cur + torch.where((v <= eh) & (v <= ih), 1, 2)
+            ab = [torch.where((ap & 3) == k, emit, ab[k]) for k in range(4)]
+            ap = ap + 1
+            acc = s32(acc + emit + ln)
+    return _done(acc.sum().reshape(1, 1), torch.stack(ab + [w0, w1]))
+
+
+def v6_trip(w, salt, reps: int):
+    """``w`` int32 (32, 8, 128), the queue rows; ``salt`` int32 (1,) ->
+    ``(out (1, 1), state (6, 8, 128))``, int32: ``reps`` trips of 8
+    sub-steps a lane (the queue row ``cur & 31``, the window shift of ``(w0,
+    w1)`` by ``cur & 31``, the merge's min and advance, the append to
+    ``ab0-ab3``), acc from the salt; out the wrapping sum of acc, state
+    ``ab0-ab3, w0, w1`` (the script never reads them).  CPU tensors take
+    :func:`v6_trip_plain`; CUDA tensors launch ``probe_v6_trip``."""
+    if w.device.type == "cpu":
+        return v6_trip_plain(w, salt, reps)
+    dev = w.device
+    check("v6_trip", "w", w, torch.int32, (V6_QD,) + TILE, dev)
+    check("v6_trip", "salt", salt, torch.int32, (1,), dev)
+    out = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    state = torch.empty((6,) + TILE, dtype=torch.int32, device=dev)
+    launch(v6_trip, "wgt_probe_v6_trip", dev, w.data_ptr(), salt.data_ptr(), reps,
+           out.data_ptr(), state.data_ptr())
+    return out, state
+
+
+v6_trip.launches = 0
+
+
+# ---------------------------------------------------------------- v6 fetch
+
+
+def _v6_call_plain(planes, r0, slab, idx, salt):
+    """``int(sum(acc)) + sum(got) + salt`` of one call (int64, unwrapped)."""
+    dev = slab.device
+    acc = torch.zeros((128, 128), dtype=torch.float32, device=dev)
+    for g in range(V6_GROUPS):  # the one-hot product as a row gather
+        rows = r0[g].long()
+        ok = (rows >= 0) & (rows < V6_ROWS)
+        acc = acc + torch.where(ok[:, None], planes[g].float()[torch.where(ok, rows, 0)], 0)
+    ix = idx.long()
+    got = torch.zeros_like(ix)
+    for c in range(V6_SLAB[1] // 128):
+        part = torch.gather(slab[:, c * 128:(c + 1) * 128].long(), 1, ix & 127)
+        got = torch.where((ix >> 7) == c, part, got)
+    return acc.double().sum().long() + got.sum() + salt
+
+
+def v6_fetch_plain(planes, r0, slab, idx, salt, reps: int):
+    """Plain version of :func:`v6_fetch`: the script's body a call, the
+    one-hot products as row gathers and the 32-chunk select."""
+    s = salt.long().reshape(())
+    r = torch.stack([s32(_v6_call_plain(planes, r0, slab, idx, s + i))
+                     for i in range(reps)])
+    return _done(r.sum().reshape(1) + s, r)
+
+
+def v6_fetch(planes, r0, slab, idx, salt, reps: int):
+    """``planes`` bf16 (8, 384, 128), ``r0`` int32 (8, 128), ``slab`` int32
+    (1024, 4096), ``idx`` int32 (1024, 128), ``salt`` int32 (1,) -> ``(total
+    (1,), r (reps,))``, int32: ``reps`` calls of the script's kernel (one
+    launch each, as ``fn200`` calls it), call i's ``r[i] =
+    int(sum(acc)) + sum(got) + salt + i`` with ``acc[l][c]`` the sum over
+    the 8 groups of ``planes[g][r0[g][l]][c]`` in float32 and ``got[n][j] =
+    slab[n][idx[n][j]]`` (0 outside the slab row), ``sum(acc)`` in float64
+    (exact where the TPU's float32 sum is); total the wrapping ``sum(r) +
+    salt``.  CPU tensors take :func:`v6_fetch_plain`; CUDA tensors launch
+    ``probe_v6_fetch``."""
+    if slab.device.type == "cpu":
+        return v6_fetch_plain(planes, r0, slab, idx, salt, reps)
+    dev = slab.device
+    check("v6_fetch", "planes", planes, torch.bfloat16, (V6_GROUPS, V6_ROWS, 128), dev)
+    check("v6_fetch", "r0", r0, torch.int32, (V6_GROUPS, 128), dev)
+    check("v6_fetch", "slab", slab, torch.int32, V6_SLAB, dev)
+    check("v6_fetch", "idx", idx, torch.int32, (V6_SLAB[0], 128), dev)
+    check("v6_fetch", "salt", salt, torch.int32, (1,), dev)
+    r = torch.empty(reps, dtype=torch.int32, device=dev)
+    for i in range(reps):
+        launch(v6_fetch, "wgt_probe_v6_fetch", dev, planes.data_ptr(), r0.data_ptr(),
+               slab.data_ptr(), idx.data_ptr(), salt.data_ptr(), i, r.data_ptr())
+    return s32(r.long().sum().reshape(1) + salt.long()).to(torch.int32), r
+
+
+v6_fetch.launches = 0
+
+
+# ---------------------------------------------------------------- body loop
+
+
+def body_loop_plain(x, salt, body: str, reps: int):
+    """Plain version of :func:`body_loop`: the script's bodies (the 9-chunk
+    select, the sublane gather, the 5-stage roll of place8, ``sel_row``)."""
+    dev = x.device
+    xl = x.long()
+    acc = _tile(dev)
+    chk = torch.zeros(1024, dtype=torch.int64, device=dev)
+    cols = torch.arange(128, device=dev)[None, :]
+    krow = torch.arange(32, device=dev)[:, None]
+    for t in range(reps):
+        i = s32(salt.long()[0, 0] + t)
+        if body == "A":
+            tr = (xl[:, :32] + i).T
+            chk += tr.sum(0)
+            acc = acc + tr[0:1, :].reshape(TILE)
+        elif body in ("B", "C"):
+            base = torch.remainder(s32(acc[0, 0] + i), LW - 128)
+            idx = torch.clamp(base + cols, 0, LW - 1).expand(1024, 128)
+            out = torch.zeros((1024, 128), dtype=torch.int64, device=dev)
+            for c in range(LW // 128):
+                g = torch.gather(xl[:, c * 128:(c + 1) * 128], 1,
+                                 torch.clamp(idx - c * 128, 0, 127))
+                out = torch.where((idx >> 7) == c, g, out)
+            chk += out.reshape(32, 32, 4, 32).sum((1, 2)).reshape(1024)
+            tr = out[:, :32].T
+            acc = acc + tr[0:1].reshape(TILE)
+            if body == "B":
+                acc = acc + tr[31:32].reshape(TILE)
+        elif body in ("D", "D2"):
+            a = acc[0, 0] if body == "D" else acc.reshape(1, 1024)
+            base = torch.remainder(s32(a * (1 if body == "D" else 7) + i), LW - 64)
+            g = torch.gather(xl, 0, torch.clamp(krow + base, 0, LW - 1).expand(32, 1024))
+            chk += g.sum(0)
+            acc = acc + g[0:1].reshape(TILE) + g[31:32].reshape(TILE)
+        elif body == "E":
+            vals8 = xl[:, 0:8] + i
+            pos = torch.remainder(s32(xl[:, 8:9] + i), 32)
+            b = torch.cat([vals8, torch.zeros((1024, 248), dtype=torch.int64, device=dev)], 1)
+            for j in range(5):
+                b = torch.where(((pos >> j) & 1) > 0, torch.roll(b, 8 << j, 1), b)
+            ci = torch.arange(256, device=dev)[None, :]
+            r = torch.where((ci >= pos * 8) & (ci < pos * 8 + 8), b, 0)
+            chk += r.sum(1)
+            acc = acc + r[:, 0:1].T.reshape(TILE)
+        else:
+            regs = [xl[0:8, c:c + 128] + c for c in range(32)]
+            sel = _sel_row(regs, (acc + i) & 31)
+            chk += sel.reshape(1024)
+            acc = acc + sel
+        acc = s32(acc)
+    return _done(acc, chk)
+
+
+def body_loop(x, salt, body: str, reps: int):
+    """``x`` int32, the stream (1024, 1152) or, for D and D2, its transpose;
+    ``salt`` int32 (8, 128) -> ``(out (8, 128), chk (1024,))``, int32:
+    ``reps`` reps of ``body`` (:data:`BODIES`, v6_probe2's) over the carry
+    from zeros, rep t's ``i = t + salt[0][0]``: A ``carry += x[l][0] + i``
+    (of the transpose of ``x[:, :32] + i``); B, C the 128-word window at
+    ``(carry[0][0] + i) % 1024`` of every row, ``carry += w[l][0]`` (+
+    ``w[l][31]``: B); D, D2 rows ``base + k``, k < 32, of ``x``, base
+    ``(carry[0][0] + i) % 1088`` (D2: each lane's ``(carry_l * 7 + i) %
+    1088``, ROADMAP C.12), ``carry += g[0][l] + g[31][l]``; E
+    ``x[l][0:8] + i`` placed at column ``8 ((x[l][8] + i) % 32)`` of a
+    256-word row, ``carry += row[0]``; F ``carry += x[r][c + k] + k``, ``k =
+    (carry + i) & 31``.  ``chk[l]`` sums what thread l read of the words the
+    body builds each rep (A the lane's 32 transposed words; B, C words lane
+    + 32 p of its warp's 32 rows; D, D2 the lane's 32; E its 8 placed; F the
+    selected one).  CPU tensors take :func:`body_loop_plain`; CUDA tensors
+    launch ``probe_body_loop``."""
+    if x.device.type == "cpu":
+        return body_loop_plain(x, salt, body, reps)
+    dev = x.device
+    if body not in BODIES:
+        raise ValueError(f"body_loop: body {body!r} not in {BODIES}")
+    shape = (LW, 1024) if body in ("D", "D2") else (1024, LW)
+    check("body_loop", "x", x, torch.int32, shape, dev)
+    check("body_loop", "salt", salt, torch.int32, TILE, dev)
+    out = torch.empty(TILE, dtype=torch.int32, device=dev)
+    chk = torch.empty(1024, dtype=torch.int32, device=dev)
+    launch(body_loop, "wgt_probe_body_loop", dev, x.data_ptr(), salt.data_ptr(),
+           BODIES.index(body), reps, out.data_ptr(), chk.data_ptr())
+    return out, chk
+
+
+body_loop.launches = 0
+
 KERNELS = {"probe_lane_loop": lane_loop, "probe_gather_loop": gather_loop,
            "probe_dot_loop": dot_loop, "probe_plane_refill": plane_refill,
            "probe_transpose_loop": transpose_loop, "probe_copy_loop": copy_loop,
            "probe_stack_fetch": stack_fetch, "probe_jframe": jframe}
+# the kernels of v6_probe.py's and v6_probe2.py's loops
+V6_KERNELS = {"probe_v6_trip": v6_trip, "probe_v6_fetch": v6_fetch,
+              "probe_body_loop": body_loop}
 PLAIN = {lane_loop: lane_loop_plain, gather_loop: gather_loop_plain,
          dot_loop: dot_loop_plain, plane_refill: plane_refill_plain,
          transpose_loop: transpose_loop_plain, copy_loop: copy_loop_plain,
-         stack_fetch: stack_fetch_plain, jframe: jframe_plain}
+         stack_fetch: stack_fetch_plain, jframe: jframe_plain,
+         v6_trip: v6_trip_plain, v6_fetch: v6_fetch_plain, body_loop: body_loop_plain}
 
 
 # ---------------------------------------------------------------- probes
@@ -564,8 +808,9 @@ PLAIN = {lane_loop: lane_loop_plain, gather_loop: gather_loop_plain,
 @dataclasses.dataclass(frozen=True)
 class Probe:
     """One run of a script: its name in the script's ``main()``, the
-    wrapper it runs on, its numpy inputs, the wrapper's other arguments,
-    the script's loop count and what one loop is (for its cost)."""
+    wrapper it runs on, its numpy inputs (``casts``: a torch dtype an input
+    is cast to, or None), the wrapper's other arguments, the script's loop
+    count and what one loop is (for its cost)."""
 
     name: str
     kernel: object
@@ -573,6 +818,10 @@ class Probe:
     params: dict
     reps: int
     unit: str
+    casts: tuple = ()
+
+    def tensors(self, dev):
+        return tensors(self.arrays, self.casts, dev)
 
     def call(self, args, reps=None, plain=False):
         """The wrapper (or its plain version) on ``args`` (the inputs as
@@ -597,7 +846,7 @@ def run_probes(probes, device="cuda", cut=None):
     res = {}
     for p in probes:
         n = (cut or {}).get(p.name, p.reps)
-        args = [torch.from_numpy(a).to(dev) for a in p.arrays]
+        args = p.tensors(dev)
         out = p.call(args, n)
         ms = device_ms(dev, lambda: p.call(args, n))
         res[p.name] = {"out": out, "checksum": checksum(out[0]), "ms": ms,

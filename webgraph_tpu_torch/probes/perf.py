@@ -78,7 +78,7 @@ def probes(interpret: bool = False):
     out.append(L.Probe(f"D{D_SLAB}", L.lane_loop, ins[f"D{D_SLAB}"],
                        {"flags": L.LL_ROWSTORE | L.LL_OUT_SLAB, "rounds": 0,
                         "slab": D_SLAB}, TRIPS, "store"))
-    out += [L.Probe(f"E{t}", L.transpose_loop, ins[f"E{t}"], {"addc": True},
+    out += [L.Probe(f"E{t}", L.transpose_loop, ins[f"E{t}"], {"addc": L.TL_ADDC},
                     E_REPS, "transpose") for t in E_ROWS]
     return out
 

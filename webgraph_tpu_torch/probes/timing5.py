@@ -81,7 +81,7 @@ def probes(interpret: bool = False):
         mk("M1", L.dot_loop, ins["M1"], "iter", onehot=False),
         mk("M2", L.dot_loop, ins["M2"], "iter", onehot=True),
         mk("M3", L.dot_loop, ins["M3"], "iter", onehot=True),
-        mk("TR", L.transpose_loop, ins["TR"], "iter", addc=False),
+        mk("TR", L.transpose_loop, ins["TR"], "iter", addc=L.TL_MASK),
         mk("DMA", L.copy_loop, ins["DMA"], "iter"),
     ]
 
