@@ -1742,20 +1742,23 @@ SUMSWEEP_NODES = 20_000
 SUMSWEEP_DIRECTED_NODES = 8_000
 
 
-def _pull_bytes(n, m, perbit=False):
-    """Bytes one ``or_pull`` step must move: the in-CSR (int64 offsets,
-    int32 sources) read once, the old words read once (the gathers of
-    in-arc sources repeat them; at 8n bytes they stay in the card's L2),
-    the new ones written, the counts written."""
-    return 8 * (n + 1) + 4 * m + 2 * 8 * n + 8 * (65 if perbit else 1)
+def _pull_bytes(n, m, k=1, levels=1, perbit=False):
+    """Bytes ``levels`` levels of ``or_pull`` over ``k`` words a node must
+    move: a level reads the in-CSR (int64 offsets, int32 sources) once and
+    the old words once (the gathers of in-arc sources repeat them; at 8 k n
+    bytes they stay in the card's L2), writes the new ones and the level's
+    counts."""
+    return levels * (8 * (n + 1) + 4 * m + 2 * 8 * k * n
+                     + 8 * k * (65 if perbit else 1))
 
 
-def _trace_busy(fn):
+def _trace_busy(fn, launches=0):
     """(device ms, or_pull ms of each launch) of one run of ``fn`` under
     ``torch.profiler``, device activity only: the summed durations of its
     kernels, copies and memsets, and of its ``or_pull`` launches.  A trace
-    that holds no device activity (the profiler dropped it) is taken
-    again, up to ``timing.TRACES`` times; then None."""
+    that holds no device activity, or fewer than ``launches`` ``or_pull``
+    launches (the profiler dropped records), is taken again, up to
+    ``timing.TRACES`` times; then None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1768,22 +1771,27 @@ def _trace_busy(fn):
         dur = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
                for e in t.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dur:
-            return (sum(d for _, d in dur),
-                    [d for k, d in dur if "or_pull" in k])
+        pulls = [d for k, d in dur if "or_pull" in k]
+        if dur and len(pulls) >= launches:
+            return sum(d for _, d in dur), pulls
     return None, []
 
 
 def _with_plain_pull(fn):
-    """``fn()`` with ``algo.device`` stepping through ``or_pull_plain``."""
+    """``fn()`` with ``algo.device`` propagating through
+    ``propagate_plain``."""
     from webgraph_tpu_torch.algo import device as A
     from webgraph_tpu_torch.kernels import propagate as P
 
-    A.or_pull = P.or_pull_plain
+    A.propagate = lambda *args, order, **kw: P.propagate_plain(*args, **kw)
     try:
         return fn()
     finally:
-        A.or_pull = P.or_pull
+        A.propagate = P.propagate
+
+
+# words a node at which a level of or_pull is timed alone
+LEVEL_KS = (1, 4, 8, 16)
 
 
 def phase_analytics(bv, label, card, csr_bulk):
@@ -1795,14 +1803,19 @@ def phase_analytics(bv, label, card, csr_bulk):
     :data:`GEO_BATCHES` geometric batches, one betweenness batch, and
     SumSweep on the symmetrized web-like graph of :data:`SUMSWEEP_NODES`
     nodes and on the directed one of :data:`SUMSWEEP_DIRECTED_NODES`, with
-    every count reset just before and read just after.  Each is exact
-    against the host copies, or against the same function through
-    ``or_pull_plain`` on the card (or on CPU tensors, betweenness), then
+    every count reset just before and read just after: one ``or_pull``
+    launch and one host read a BFS (SumSweep's too), a group of
+    ``algo.device.GROUP`` NF or geometric batches.  Each is exact against
+    the host copies, or against the same function through
+    ``propagate_plain`` on the card (or on CPU tensors, betweenness), then
     timed: CUDA-event ms (median of 3 more runs; SumSweep's one counted
-    run), ``or_pull`` launches and ms a launch, host reads, the bound, the
-    busy share (device time in a traced run over that ms; not traced for
-    the directed SumSweep).  Returns
-    ``or_pull``'s kernel row."""
+    run), ``or_pull`` launches and ms a launch, host reads, levels run, the
+    bound (levels x a level's bytes), the busy share (device time in a
+    traced run over that ms; not traced for the directed SumSweep).  Then
+    ``or_pull`` alone: one level against ``or_pull_plain`` and timed at
+    :data:`LEVEL_KS` words a node, a BFS's one launch, and a 4-word
+    propagation with per-bit counts and distances against
+    ``propagate_plain``.  Returns ``or_pull``'s kernel row."""
     import numpy as np
     import torch
 
@@ -1811,6 +1824,7 @@ def phase_analytics(bv, label, card, csr_bulk):
     from webgraph_tpu_torch.algo.sumsweep import (
         OutputLevel, SumSweepDirectedDiameterRadius)
     from webgraph_tpu_torch.graph.csr import CSRGraph
+    from webgraph_tpu_torch.kernels import _build
     from webgraph_tpu_torch.kernels import propagate as P
     from webgraph_tpu_torch.synth import weblike_graph
     from webgraph_tpu_torch.timing import cuda_ms, kernel_ms
@@ -1829,13 +1843,23 @@ def phase_analytics(bv, label, card, csr_bulk):
     ops = {}
 
     def step(name, fn):
-        """``fn()`` once, timed by CUDA events, its launches and reads."""
+        """``fn()`` once, timed by CUDA events, its launches, reads and
+        levels."""
         pulls, reads = P.or_pull.launches, sum(A.host_reads.values())
+        levels = P.propagate.levels
         out, ms = _events_ms(fn)
         ops[name] = {"fn": fn, "ms": ms,
                      "launches": P.or_pull.launches - pulls,
-                     "reads": sum(A.host_reads.values()) - reads}
+                     "reads": sum(A.host_reads.values()) - reads,
+                     "run": P.propagate.levels - levels}
         return out
+
+    bfs_calls = []  # SumSweep's BFS runs, by the device BFS it calls
+    device_bfs = A.bfs_distances
+
+    def counted_bfs(*args, **kw):
+        bfs_calls.append(1)
+        return device_bfs(*args, **kw)
 
     def sumsweep(g, use_device):
         s = SumSweepDirectedDiameterRadius(
@@ -1864,8 +1888,15 @@ def phase_analytics(bv, label, card, csr_bulk):
         csr, n, 0.5)(0, GEO_BATCHES))
     bc = step("betweenness",
               lambda: A.make_betweenness_batches(csr, n, BC_BATCH)(0))
-    ss = step("sumsweep", lambda: sumsweep(g20, True))
-    ssd = step("sumsweep directed", lambda: sumsweep(gdir, True))
+    A.bfs_distances = counted_bfs
+    try:
+        ss = step("sumsweep", lambda: sumsweep(g20, True))
+        ops["sumsweep"]["bfs"] = len(bfs_calls)
+        ssd = step("sumsweep directed", lambda: sumsweep(gdir, True))
+        ops["sumsweep directed"]["bfs"] = (len(bfs_calls)
+                                           - ops["sumsweep"]["bfs"])
+    finally:
+        A.bfs_distances = device_bfs
     torch.cuda.synchronize()
     launches = P.or_pull.launches
     reads = dict(A.host_reads)
@@ -1875,6 +1906,17 @@ def phase_analytics(bv, label, card, csr_bulk):
           f"{label} analytics: decode launches {c} then {c2}")
     check(launches == sum(o["launches"] for o in ops.values()) > 0,
           f"{label} analytics: or_pull launches {launches}")
+    # one launch and one host read a propagation (none runs past a level
+    # array here): a BFS, a group of batches, a BFS of SumSweep's
+    props = {f"bfs {s}": 1 for s in sources}
+    props["nf"] = -(-NF_BATCHES // A.GROUP)
+    props["geometric"] = -(-GEO_BATCHES // A.GROUP)
+    props["sumsweep"] = ops["sumsweep"]["bfs"]
+    props["sumsweep directed"] = ops["sumsweep directed"]["bfs"]
+    for name, w in props.items():
+        check(ops[name]["launches"] == ops[name]["reads"] == w,
+              f"{label} analytics {name}: {ops[name]['launches']} launches, "
+              f"{ops[name]['reads']} host reads, {w} propagations")
 
     # exact against the host copies and the plain versions
     check(torch.equal(csr.offsets, csr_bulk[0].long())
@@ -1898,7 +1940,7 @@ def phase_analytics(bv, label, card, csr_bulk):
     pc, pdeep = _with_plain_pull(
         lambda: A.make_nf_batches(csr, n)(0, NF_BATCHES))
     check(pdeep == nf_deep and np.array_equal(pc, nf_counts),
-          f"{label} analytics: NF batches differ from or_pull_plain's")
+          f"{label} analytics: NF batches differ from propagate_plain's")
     few = np.arange(NF_VS_HOST)
     counts, _, it = A.nf64(csr, few)
     want = np.zeros(it + 1, np.int64)
@@ -1927,8 +1969,9 @@ def phase_analytics(bv, label, card, csr_bulk):
               f"{label} analytics: SumSweep{name} differs from the host path")
     ss_host_s = time.perf_counter() - t0
 
-    # or_pull alone at the path's shapes: batch 0's words after 3 steps
-    words = A._batch_masks(csr, torch.arange(64, device="cuda"))
+    # or_pull alone at the path's shapes: batch 0's words after 3 steps,
+    # one level against the plain version (the one-step entry)
+    words = A._batch_masks(csr, torch.arange(64, device="cuda")).view(-1)
     for _ in range(3):
         words, _ = P.or_pull(csr.in_off, csr.in_src, words)
     new, stats = P.or_pull(csr.in_off, csr.in_src, words, perbit=True)
@@ -1950,10 +1993,45 @@ def phase_analytics(bv, label, card, csr_bulk):
     library_ms = cuda_ms(
         lambda: pulled.scatter_reduce_(0, idx, gathered, "amax"), 5)
     del bits, gathered, idx, pulled
-    bound_ms, bound_by = _bound(_pull_bytes(n, m, True), m + n)
+    bound_ms, bound_by = _bound(_pull_bytes(n, m, perbit=True), m + n)
 
-    # bounds, busy shares, or_pull's ms a launch in the path
-    step_b = _pull_bytes(n, m)
+    # a level alone at k words a node (batches 0..k-1 after 3 levels), and
+    # a BFS's one launch
+    level_ms, level_bound = {}, {}
+    for k in LEVEL_KS:
+        wk = P.propagate(csr.in_off, csr.in_src, A._group_words(csr, 0, k),
+                         max_levels=3, order=csr.pull).words
+        level_ms[k] = kernel_ms(lambda: P.propagate(
+            csr.in_off, csr.in_src, wk, max_levels=1, order=csr.pull), 10,
+            ("or_pull",))["or_pull"]
+        level_bound[k] = _bound(_pull_bytes(n, m, k), k * (m + n))[0]
+    s0 = sources[0]
+    bfs_levels = ops[f"bfs {s0}"]["run"]
+    bfs_ms = kernel_ms(lambda: A.bfs_distances(csr, s0), 5,
+                       ("or_pull",))["or_pull"]
+    bfs_bound = _bound(_pull_bytes(n, m, levels=bfs_levels), 0)[0]
+
+    # a whole 4-word propagation with per-bit counts and distances against
+    # the plain version
+    w4 = A._group_words(csr, 0, 4)
+    d1 = torch.full(w4.shape, -1, dtype=torch.int32, device="cuda")
+    d2 = d1.clone()
+    got = P.propagate(csr.in_off, csr.in_src, w4, max_levels=n, perbit=True,
+                      dist=d1, order=csr.pull)
+    want4 = P.propagate_plain(csr.in_off, csr.in_src, w4, max_levels=n,
+                              perbit=True, dist=d2)
+    check(got.levels == want4.levels
+          and torch.equal(got.words, want4.words)
+          and torch.equal(got.counts, want4.counts)
+          and torch.equal(got.bits, want4.bits) and torch.equal(d1, d2),
+          f"{label} analytics: a 4-word propagation differs from "
+          f"propagate_plain")
+    err = max(err, int((got.bits - want4.bits).abs().max()))
+    prop_levels = got.levels
+    blocks = [_build.load().wgt_or_pull_blocks(pb) for pb in (0, 1)]
+
+    # bounds (levels run x a level's bytes), busy shares, or_pull's ms a
+    # launch in the path
     # the betweenness batch's forward levels (a read each, the last finds
     # no frontier) and its backward levels, one fewer
     bc_levels = ops["betweenness"]["reads"]
@@ -1964,17 +2042,19 @@ def phase_analytics(bv, label, card, csr_bulk):
         "transpose": 8 * m + 8 * (n + 1) + 4 * m,
         "symmetrize": 8 * m + 8 * (n + 1) + 4 * ops["symmetrize"]["arcs"],
         "map": 8 * m + 8 * n + 8 * (n + 1) + 4 * ops["map"]["arcs"],
-        "nf": ops["nf"]["launches"] * step_b,
-        "geometric": ops["geometric"]["launches"] * (step_b + 64 * 8),
+        "nf": _pull_bytes(n, m, min(A.GROUP, NF_BATCHES), ops["nf"]["run"]),
+        "geometric": _pull_bytes(n, m, min(A.GROUP, GEO_BATCHES),
+                                 ops["geometric"]["run"], perbit=True),
         "betweenness": (bc_levels * (8 * m + 12 * BC_BATCH * n)
                         + (bc_levels - 1) * (8 * m + 16 * BC_BATCH * n)),
-        "sumsweep": ops["sumsweep"]["launches"] * _pull_bytes(
-            g20.num_nodes(), g20.num_arcs()),
-        "sumsweep directed": ops["sumsweep directed"]["launches"]
-        * _pull_bytes(gdir.num_nodes(), gdir.num_arcs()),
+        "sumsweep": _pull_bytes(g20.num_nodes(), g20.num_arcs(),
+                                levels=ops["sumsweep"]["run"]),
+        "sumsweep directed": _pull_bytes(
+            gdir.num_nodes(), gdir.num_arcs(),
+            levels=ops["sumsweep directed"]["run"]),
     }
     for s in sources:
-        bounds[f"bfs {s}"] = ops[f"bfs {s}"]["launches"] * step_b
+        bounds[f"bfs {s}"] = _pull_bytes(n, m, levels=ops[f"bfs {s}"]["run"])
     # SumSweep keeps its one counted run; the directed sweep's trace would
     # hold some 10^5 launches, more than the smoke has time to read
     for name, o in ops.items():
@@ -1982,11 +2062,15 @@ def phase_analytics(bv, label, card, csr_bulk):
             o["ms"] = cuda_ms(o["fn"], 3)
         busy, pulls = None, []
         if name != "sumsweep directed":
-            busy, pulls = _trace_busy(o["fn"])
+            busy, pulls = _trace_busy(o["fn"], o["launches"])
         b_ms, b_by = _bound(int(bounds[name]), 0)
         extra = ""
         if "levels" in o:
-            extra = f", levels {o['levels']}"
+            extra = f", eccentricity {o['levels']}"
+        if o.get("run"):
+            extra += f", levels run {o['run']}"
+        if "bfs" in o:
+            extra += f", {o['bfs']} BFS"
         if "arcs" in o:
             extra = f", {o['arcs']} arcs out"
         print(f"{label} analytics {name}: {o['ms']:.4f} ms, or_pull "
@@ -2003,21 +2087,32 @@ def phase_analytics(bv, label, card, csr_bulk):
           f"sweeps {ss} on the symmetrized {SUMSWEEP_NODES}-node web-like "
           f"graph, {g20.num_arcs()} arcs, and {ssd} on the directed "
           f"{SUMSWEEP_DIRECTED_NODES}-node one, {gdir.num_arcs()} arcs; "
-          f"host path {ss_host_s:.1f} s) and vs or_pull_plain "
+          f"host path {ss_host_s:.1f} s) and vs propagate_plain "
           f"(NF, geometric), betweenness vs CPU tensors ({bc_cpu_s:.1f} s); "
           f"full exact NF projected from {NF_BATCHES} batches: "
           f"{-(-n // 64)} batches x {nf_ms:.2f} ms = "
           f"{-(-n // 64) * nf_ms / 1e3:.1f} s (projected, not run); "
           f"host reads {reads}")
-    print(f"{label} analytics or_pull: n {n} m {m}, exact vs plain; "
-          f"{ms:.4f} ms a launch on the device ({call_ms:.4f} ms a call by "
-          f"CUDA events), bound {bound_ms:.4f} ms ({bound_by}), "
-          f"plain {plain_ms:.2f} ms, scatter_reduce(amax) over the "
-          f"unpacked bits {library_ms:.4f} ms; {launches} launches on the "
-          f"path; card {card}")
+    print(f"{label} analytics or_pull: n {n} m {m}, at most {blocks[0]} "
+          f"blocks a launch ({blocks[1]} with per-bit counts), exact vs "
+          f"plain (one level, and a 4-word propagation of "
+          f"{prop_levels} levels with per-bit counts and distances); one "
+          f"level {ms:.4f} ms on the device ({call_ms:.4f} ms a call by CUDA "
+          f"events), bound {bound_ms:.4f} ms ({bound_by}), plain "
+          f"{plain_ms:.2f} ms, scatter_reduce(amax) over the unpacked bits "
+          f"{library_ms:.4f} ms; a level alone at k words: "
+          + ", ".join(f"k {k} {level_ms[k]:.4f} ms (bound "
+                      f"{level_bound[k]:.4f})" for k in LEVEL_KS)
+          + f"; a BFS of {bfs_levels} levels in one launch {bfs_ms:.4f} ms "
+          f"({bfs_ms / bfs_levels:.4f} a level, bound {bfs_bound:.4f}); "
+          f"{launches} launches on the path; card {card}")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "level_ms": {str(k): v for k, v in level_ms.items()},
+            "level_bound_ms": {str(k): v for k, v in level_bound.items()},
+            "bfs_launch_ms": bfs_ms, "bfs_levels": bfs_levels,
+            "blocks": blocks}
 
 
 def main():
@@ -2117,7 +2212,11 @@ def main():
         {**row("or_pull", "webgraph_tpu_torch/csrc/propagate.cu",
                "webgraph_tpu/algo/device.py:118", pull,
                note="no pallas_call: takes the place of the XLA "
-                    "segmented-OR scan _seg_or_scan and its callers"),
+                    "segmented-OR scan _seg_or_scan and its callers; ms, "
+                    "bound and plain: one level over one word",
+               **{k: pull[k] for k in ("level_ms", "level_bound_ms",
+                                       "bfs_launch_ms", "bfs_levels",
+                                       "blocks")}),
          "library_ms": pull["library_ms"]},
     ]
     # the fragment probes: each run on the probe path of phase_probes

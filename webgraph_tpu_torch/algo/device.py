@@ -9,16 +9,21 @@ thread pool; BetweennessCentrality.java:256 Brandes).  Here every step is
 level-synchronous over a graph resident on the device:
 
 * reachability (``bfs_distances``, ``nf64``, the NF and geometric
-  batches): 64 sources a batch, one bit a source in an int64 word a node
-  (source ``i`` of a batch at bit ``i``), one ``or_pull`` launch a level
-  over the in-CSR (``kernels/propagate.py``, ``csrc/propagate.cu``);
+  batches): 64 sources a word, one bit a source in an int64 word (source
+  ``i`` of a batch at bit ``i``), up to ``kernels.propagate.KMAX`` words
+  a node (one a batch); a whole propagation, level after level, is one
+  ``or_pull`` launch over the in-CSR (``kernels/propagate.py::propagate``,
+  ``csrc/propagate.cu``);
 * betweenness: batched Brandes in plain torch (gathers, ``index_add_``)
   with exact int64 path counts and float64 dependencies.
 
-The JAX package keeps each loop inside one ``while_loop`` on the device;
-the port drives each level from the host and reads back one value a level
-(the count of newly reached bits, or the frontier size) to decide whether
-to go on.  :data:`host_reads` counts those reads.
+The JAX package keeps each loop inside one ``while_loop`` on the device,
+and the batch loop inside the jit; the port runs a propagation's levels
+inside one kernel launch, which stops on the device, and ``k`` batches in
+one launch.  The host reads the level count and the counts once a launch
+(a further launch only where a propagation outruns a launch's level
+array, ``kernels.propagate.LEVELS``); :data:`host_reads` counts those
+reads, and betweenness's one a level.
 
 The JAX package keeps masks as ``uint32[n, 2]`` (source ``i`` at word
 ``i // 32``, bit ``i % 32``); :func:`masks_from_jax` and
@@ -31,12 +36,14 @@ import numpy as np
 import torch
 
 from webgraph_tpu_torch.algo.centralities import BetweennessCentrality
-from webgraph_tpu_torch.kernels.propagate import or_pull
+from webgraph_tpu_torch.kernels import propagate as _kernel
+from webgraph_tpu_torch.kernels.propagate import propagate, pull_order
 from webgraph_tpu_torch.transform.device import (arcs_of, graph_csr,
                                                  transpose_arcs_device)
 
 # reads of a device value by the host loops, by the loop that made them
 host_reads = {"bfs": 0, "nf": 0, "geometric": 0, "betweenness": 0}
+GROUP = 4  # batches a launch in the NF and geometric batch runners
 
 _BIT = torch.tensor([1], dtype=torch.int64) << torch.arange(64)
 _LOW31 = 2**31 - 1
@@ -46,7 +53,9 @@ class DeviceCSR:
     """A graph resident on a torch device: the out-arcs ``src``/``dst``
     (int32[m], by source) and the in-CSR ``in_off`` (int64[n+1]) /
     ``in_src`` (int32[m]), the transpose, built on the device at
-    construction (``transform/device.py::transpose_arcs_device``)."""
+    construction (``transform/device.py::transpose_arcs_device``), and
+    ``pull``, the nodes by in-degree that ``or_pull`` maps to lanes
+    (``kernels.propagate.pull_order``)."""
 
     def __init__(self, offsets, succ, n: int | None = None, device="cuda"):
         self.device = torch.device(device)
@@ -57,6 +66,7 @@ class DeviceCSR:
         self.src, self.dst = arcs_of(self.offsets, succ)
         self.in_off, self.in_src, _ = transpose_arcs_device(
             self.src, self.dst, self.n)
+        self.pull = pull_order(self.in_off)
 
     @classmethod
     def from_graph(cls, g, device="cuda"):
@@ -73,6 +83,7 @@ class DeviceCSR:
         t.device, t.n, t.m = self.device, self.n, self.m
         t.offsets, t.in_off, t.in_src = self.in_off, self.offsets, self.dst
         t.src, t.dst = arcs_of(self.in_off, self.in_src)
+        t.pull = pull_order(t.in_off)
         return t
 
 
@@ -101,11 +112,21 @@ def _sources(csr: DeviceCSR, sources) -> torch.Tensor:
 
 
 def _batch_masks(csr: DeviceCSR, sources: torch.Tensor) -> torch.Tensor:
-    """int64[n] words with bit ``i`` set at node ``sources[i]`` (at most
+    """int64[n, 1] words with bit ``i`` set at node ``sources[i]`` (at most
     64 sources; a node named twice gets both bits)."""
     masks = torch.zeros(csr.n, dtype=torch.int64, device=csr.device)
     bits = _BIT[: sources.numel()].to(csr.device)
-    return masks.index_put_((sources,), bits, accumulate=True)
+    return masks.index_put_((sources,), bits, accumulate=True).view(-1, 1)
+
+
+def _propagate(loop: str, csr: DeviceCSR, words, cap: int, **kw):
+    """``kernels.propagate.propagate`` over the graph's in-CSR, its host
+    reads counted under ``loop``."""
+    reads = _kernel.propagate.reads  # counted by the plain version too
+    out = propagate(csr.in_off, csr.in_src, words, max_levels=cap,
+                    order=csr.pull, **kw)
+    host_reads[loop] += _kernel.propagate.reads - reads
+    return out
 
 
 def bfs_distances(csr: DeviceCSR, sources, max_levels: int | None = None):
@@ -115,23 +136,17 @@ def bfs_distances(csr: DeviceCSR, sources, max_levels: int | None = None):
     ``[0, n)``.
 
     Level-synchronous (ParallelBreadthFirstVisit.java:149-181): one
-    ``or_pull`` a level over one-bit words, which writes ``level + 1`` at
-    each node it reaches; one host read a level."""
+    propagation of a one-bit word, which writes ``level + 1`` at each node
+    it reaches; one ``or_pull`` launch and one host read (more only past
+    ``kernels.propagate.LEVELS`` levels)."""
     s = _sources(csr, sources)
     cap = int(max_levels if max_levels is not None else csr.n)
-    dist = torch.full((csr.n,), -1, dtype=torch.int32, device=csr.device)
+    dist = torch.full((csr.n, 1), -1, dtype=torch.int32, device=csr.device)
     dist[s] = 0
-    reached = torch.zeros(csr.n, dtype=torch.int64, device=csr.device)
+    reached = torch.zeros(csr.n, 1, dtype=torch.int64, device=csr.device)
     reached[s] = 1
-    level = 0
-    while level < cap:
-        reached, stats = or_pull(csr.in_off, csr.in_src, reached, dist=dist,
-                                 level=level)
-        host_reads["bfs"] += 1
-        if int(stats[0]) == 0:
-            break
-        level += 1
-    return dist
+    _propagate("bfs", csr, reached, cap, dist=dist)
+    return dist.view(-1)
 
 
 def eccentricity(csr: DeviceCSR, source: int) -> int:
@@ -139,25 +154,23 @@ def eccentricity(csr: DeviceCSR, source: int) -> int:
     return int(bfs_distances(csr, source).max())
 
 
+def _nf_rows(counts: np.ndarray, total0: int):
+    """``(row, it)`` of one word's level counts (:func:`nf64`): ``row[t]``
+    the pairs at distance <= t for t in 0..it, ``it`` the first level that
+    reached nothing, plus one (all the levels when none did)."""
+    zero = np.flatnonzero(counts == 0)
+    it = int(zero[0]) + 1 if zero.size else len(counts)
+    return np.concatenate([[total0], total0 + np.cumsum(counts[:it])]), it
+
+
 def _nf_batch(csr: DeviceCSR, sources: torch.Tensor, cap: int):
     """Propagate one batch's words to convergence (or ``cap`` steps):
     ``(counts, masks, it)``, ``counts[t]`` the (source, node) pairs at
     distance <= t for t in 0..it, as the JAX loop counts them (its last
     step the one that reached nothing, unless ``cap`` stopped it)."""
-    masks = _batch_masks(csr, sources)
-    total = sources.numel()  # one bit a source
-    counts = [total]
-    it = 0
-    while it < cap:
-        masks, stats = or_pull(csr.in_off, csr.in_src, masks)
-        host_reads["nf"] += 1
-        newly = int(stats[0])
-        total += newly
-        counts.append(total)
-        it += 1
-        if newly == 0:
-            break
-    return np.asarray(counts, dtype=np.int64), masks, it
+    res = _propagate("nf", csr, _batch_masks(csr, sources), cap)
+    row, it = _nf_rows(res.counts[:, 0].numpy(), sources.numel())
+    return row.astype(np.int64), res.words.view(-1), it
 
 
 def nf64(csr: DeviceCSR, sources, max_iters: int | None = None):
@@ -175,24 +188,42 @@ def nf64(csr: DeviceCSR, sources, max_iters: int | None = None):
     return _nf_batch(csr, s, cap)
 
 
-def _batch_sources(csr: DeviceCSR, b: int) -> torch.Tensor:
-    """The sources of batch ``b``: ``64 b .. 64 b + 63``, those past the
-    last node left out."""
-    return torch.arange(64 * b, min(64 * b + 64, csr.n), device=csr.device)
+def _group_words(csr: DeviceCSR, first: int, k: int) -> torch.Tensor:
+    """int64[n, k]: word ``j`` holds batch ``first + j``'s sources, ``64 b
+    .. 64 b + 63`` (those past the last node left out), source ``i`` of a
+    batch at bit ``i``."""
+    s = torch.arange(64 * first, min(64 * (first + k), csr.n),
+                     device=csr.device)
+    words = torch.zeros(csr.n, k, dtype=torch.int64, device=csr.device)
+    rel = s - 64 * first
+    words[s, rel // 64] = torch.ones_like(rel) << (rel % 64)
+    return words
+
+
+def _groups(start_batch: int, nbatch: int):
+    """``(first, k)`` of each launch: ``nbatch`` batches, :data:`GROUP` a
+    launch."""
+    for first in range(start_batch, start_batch + nbatch, GROUP):
+        yield first, min(GROUP, start_batch + nbatch - first)
 
 
 def make_nf_batches(csr: DeviceCSR, cap: int):
     """``run(start_batch, nbatch) -> (counts int64[nbatch, deepest + 1],
     deepest)``: ``nbatch`` consecutive 64-source batches, each run to
-    convergence; each row padded with its last value to the deepest
-    batch's steps (the JAX package pads every row to ``cap + 1``)."""
+    convergence, :data:`GROUP` of them a launch (a word each); each row
+    padded with its last value to the deepest batch's steps (the JAX
+    package pads every row to ``cap + 1``)."""
 
     def run(start_batch: int, nbatch: int):
         rows, deepest = [], 0
-        for b in range(start_batch, start_batch + nbatch):
-            counts, _, it = _nf_batch(csr, _batch_sources(csr, b), cap)
-            rows.append(counts)
-            deepest = max(deepest, it)
+        for first, k in _groups(start_batch, nbatch):
+            res = _propagate("nf", csr, _group_words(csr, first, k), cap)
+            counts = res.counts.numpy()
+            for j in range(k):
+                total0 = min(64, max(0, csr.n - 64 * (first + j)))
+                row, it = _nf_rows(counts[:, j], total0)
+                rows.append(row)
+                deepest = max(deepest, it)
         out = np.zeros((nbatch, deepest + 1), dtype=np.int64)
         for i, r in enumerate(rows):
             out[i, : len(r)] = r
@@ -231,7 +262,8 @@ def make_geometric_batches(csr: DeviceCSR, cap: int, alpha: float = 0.5):
     """``run(start_batch, nbatch) -> (reach, sumdist, sumrecip, sumexp)``,
     each of ``nbatch * 64`` slots on the graph's device, per source of 64
     consecutive sources a batch (GeometricCentralities.java:70/211 runs a
-    BFS a node; here 64 a batch, bit-packed)::
+    BFS a node; here 64 a batch, bit-packed, :data:`GROUP` batches a
+    launch)::
 
         reach[s]    = #{y != s : d(s, y) < inf}     int64
         sumdist[s]  = sum_y d(s, y)                 int64
@@ -247,22 +279,22 @@ def make_geometric_batches(csr: DeviceCSR, cap: int, alpha: float = 0.5):
                for t in (torch.int64, torch.int64, torch.float64,
                          torch.float64)]
         reach, sumd, sumr, sume = acc
-        for i in range(nbatch):
-            masks = _batch_masks(csr, _batch_sources(csr, start_batch + i))
-            it = 0
-            while it < cap:
-                masks, stats = or_pull(csr.in_off, csr.in_src, masks,
-                                       perbit=True)
-                cnew = stats[1:]
-                d = it + 1
-                reach[i] += cnew
-                sumd[i] += cnew * d
-                sumr[i] += cnew.to(torch.float64) / d
-                sume[i] += cnew.to(torch.float64) * float(alpha) ** d
-                it += 1
-                host_reads["geometric"] += 1
-                if int(stats[0]) == 0:
-                    break
+        for first, k in _groups(start_batch, nbatch):
+            res = _propagate("geometric", csr, _group_words(csr, first, k),
+                             cap, perbit=True)
+            if not res.levels:
+                continue
+            cnew = res.bits  # [levels, k, 64]: nodes reached at distance
+            d = torch.arange(1, res.levels + 1, device=dev)  # level + 1
+            w = torch.tensor([float(alpha) ** t for t in range(1, res.levels
+                                                               + 1)],
+                             dtype=torch.float64, device=dev)
+            rows = slice(first - start_batch, first - start_batch + k)
+            reach[rows] += cnew.sum(dim=0)
+            sumd[rows] += (cnew * d[:, None, None]).sum(dim=0)
+            cf = cnew.to(torch.float64)
+            sumr[rows] += (cf / d.to(torch.float64)[:, None, None]).sum(dim=0)
+            sume[rows] += (cf * w[:, None, None]).sum(dim=0)
         return tuple(a.reshape(-1) for a in acc)
 
     return run

@@ -63,8 +63,12 @@ _SIGNATURES = {
         "wgt_k2_compact_probe": (_P, _P, _P, _I, _I, _P, _P, _P),
     },
     "propagate.cu": {
-        # in_off, in_src, n, old, new, stats, perbit, dist, level, stream
-        "wgt_or_pull": (_P, _P, _L, _P, _P, _P, _I, _P, _I, _P),
+        # in_src, order, bounds, span, n, k, in, a, b, stat, perbit, dist,
+        # level0, cap, stream
+        "wgt_or_pull": (_P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _I, _P, _I,
+                        _I, _P),
+        # perbit
+        "wgt_or_pull_blocks": (_I,),
     },
     "probes.cu": {
         # words, nbits, starts, lanes, k, coding, zeta_k, out, stream
