@@ -4,9 +4,9 @@
 Drives the port's main path, bulk BVGraph decode into CSR, on the card,
 through its two routes (K1 for reference chains that reach back at most
 256 nodes, K2 for longer ones), batched random access through K1's
-kernels, the analytics on the decoded graph, and the probe path (the
-fragment probes on the TPU probe scripts' inputs), using only the port's
-own modules:
+kernels, the analytics and HyperBall on the decoded graph, and the probe
+path (the fragment probes on the TPU probe scripts' inputs), using only
+the port's own modules:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the CUDA kernels from ``webgraph_tpu_torch/csrc``;
@@ -81,7 +81,13 @@ own modules:
    plan, each kernel, the batch, ns a node); the 1,024 batch's kernels
    held to their plain versions on the same closure;
 12. the analytics on the K1 cell after its query phase
-   (``phase_analytics``).
+   (``phase_analytics``);
+13. HyperBall on the K1 cell after its analytics (``phase_hyperball``):
+   ``algo.hyperball_device.HyperBallDevice`` from the stored graph (K1 on
+   the card, then one ``hll_pull`` launch for the whole run) at log2m 6
+   with both centralities and a discount function, counted from 0, held
+   to the plain version's run on the card, three single iterations to the
+   plain step, a systolic run to the dense one, then timed.
 
 It prints a JSON line of per-kernel results and, last, a JSON line with the
 device.  Any failure raises, so the exit code is not 0 and no last line is
@@ -178,6 +184,7 @@ FORM_REPLACES = {
 KERNELS = {"decode2.cu": ("k1_parse", "k0_probe"),
            "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe"),
            "propagate.cu": ("or_pull",),
+           "hyperball.cu": ("hll_pull",),
            "probes.cu": tuple(PROBE_REPLACES),
            "loops.cu": tuple(LOOP_REPLACES)
            + ("probe_v6_trip", "probe_v6_fetch", "probe_body_loop"),
@@ -1752,31 +1759,6 @@ def _pull_bytes(n, m, k=1, levels=1, perbit=False):
                      + 8 * k * (65 if perbit else 1))
 
 
-def _trace_busy(fn, launches=0):
-    """(device ms, or_pull ms of each launch) of one run of ``fn`` under
-    ``torch.profiler``, device activity only: the summed durations of its
-    kernels, copies and memsets, and of its ``or_pull`` launches.  A trace
-    that holds no device activity, or fewer than ``launches`` ``or_pull``
-    launches (the profiler dropped records), is taken again, up to
-    ``timing.TRACES`` times; then None."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from webgraph_tpu_torch.timing import TRACES
-
-    for _ in range(TRACES):
-        with profile(activities=[ProfilerActivity.CUDA]) as t:
-            fn()
-            torch.cuda.synchronize()
-        dur = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-               for e in t.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        pulls = [d for k, d in dur if "or_pull" in k]
-        if dur and len(pulls) >= launches:
-            return sum(d for _, d in dur), pulls
-    return None, []
-
-
 def _with_plain_pull(fn):
     """``fn()`` with ``algo.device`` propagating through
     ``propagate_plain``."""
@@ -1815,7 +1797,8 @@ def phase_analytics(bv, label, card, csr_bulk):
     ``or_pull`` alone: one level against ``or_pull_plain`` and timed at
     :data:`LEVEL_KS` words a node, a BFS's one launch, and a 4-word
     propagation with per-bit counts and distances against
-    ``propagate_plain``.  Returns ``or_pull``'s kernel row."""
+    ``propagate_plain``.  Returns ``or_pull``'s kernel row and, under
+    ``csr``, the ``DeviceCSR``."""
     import numpy as np
     import torch
 
@@ -1827,7 +1810,7 @@ def phase_analytics(bv, label, card, csr_bulk):
     from webgraph_tpu_torch.kernels import _build
     from webgraph_tpu_torch.kernels import propagate as P
     from webgraph_tpu_torch.synth import weblike_graph
-    from webgraph_tpu_torch.timing import cuda_ms, kernel_ms
+    from webgraph_tpu_torch.timing import cuda_ms, kernel_ms, trace_busy
     from webgraph_tpu_torch.transform import device as TD
     from webgraph_tpu_torch.transform import transform as T
     from webgraph_tpu_torch.utils.rng import XoRoShiRo128PlusRandom
@@ -2062,7 +2045,7 @@ def phase_analytics(bv, label, card, csr_bulk):
             o["ms"] = cuda_ms(o["fn"], 3)
         busy, pulls = None, []
         if name != "sumsweep directed":
-            busy, pulls = _trace_busy(o["fn"], o["launches"])
+            busy, pulls = trace_busy(o["fn"], "or_pull", o["launches"])
         b_ms, b_by = _bound(int(bounds[name]), 0)
         extra = ""
         if "levels" in o:
@@ -2112,7 +2095,286 @@ def phase_analytics(bv, label, card, csr_bulk):
             "level_ms": {str(k): v for k, v in level_ms.items()},
             "level_bound_ms": {str(k): v for k, v in level_bound.items()},
             "bfs_launch_ms": bfs_ms, "bfs_levels": bfs_levels,
-            "blocks": blocks}
+            "blocks": blocks, "csr": csr}
+
+
+HB_LOG2M = 6
+HB_LEVEL_LOG2MS = (4, 6, 8)  # log2m at which an iteration is timed alone
+HB_STEPS = 3  # single iterations held to the plain step
+HB_ACCUMULATORS = 3  # sum of distances, of inverse distances, a discount
+HLL_EXTRAS = ("iterations", "run_ms", "run_device_ms", "run_bound_ms",
+              "run_bound_with_gathers_ms", "busy", "plain_run_ms",
+              "level_ms", "level_bound_ms", "systolic_iterations",
+              "max_rel_err", "blocks")
+
+
+def _hll_bytes(n, m, log2m, changed, accumulators):
+    """Bytes an iteration of ``hll_pull`` over 2**log2m registers a node
+    must move, the gathered rows left out as ``_pull_bytes`` leaves them:
+    the out-CSR (int64 offsets, int32 successors), the old rows, flags and
+    estimates read, the new rows and flags written, and for each of the
+    ``changed`` rows its estimate written and each of ``accumulators``
+    float64 arrays read and written."""
+    regs = 1 << log2m
+    return (8 * (n + 1) + 4 * m + 2 * regs * n + 2 * n + 8 * n
+            + changed * (8 + 16 * accumulators))
+
+
+def _hll_with(levels, fn):
+    """``fn()`` with ``algo.hyperball_device`` iterating through
+    ``levels`` in the place of ``kernels.hyperball.hll_levels``."""
+    from webgraph_tpu_torch.algo import hyperball_device as HD
+    from webgraph_tpu_torch.kernels import hyperball as K
+
+    HD.hll_levels = levels
+    try:
+        return fn()
+    finally:
+        HD.hll_levels = K.hll_levels
+
+
+def _hll_plain(*args, order=None, **kw):
+    from webgraph_tpu_torch.kernels import hyperball as K
+
+    return K.hll_levels_plain(*args, **kw)
+
+
+def _hll_copy(s):
+    """A copy of an ``HllState`` with its own tensors (no spares)."""
+    import dataclasses
+
+    def c(t):
+        return None if t is None else t.clone()
+
+    return dataclasses.replace(
+        s, registers=c(s.registers), modified=c(s.modified),
+        current=c(s.current), sum_of_distances=c(s.sum_of_distances),
+        sum_of_inverse_distances=c(s.sum_of_inverse_distances),
+        discounted=c(s.discounted), spare=None, spare_modified=None)
+
+
+def phase_hyperball(bv, label, card, csr):
+    """HyperBall on the K1 cell at size, after the analytics phase, whose
+    ``DeviceCSR`` of ``bv`` is ``csr``: ``HyperBallDevice(bv)`` (K1 on the
+    card: ``k1_parse`` 1, ``k2_resolve`` 1) at log2m :data:`HB_LOG2M` with
+    both centralities and a discount function, run to convergence with
+    every count reset just before and read just after (``hll_pull``
+    launched once a ``LEVELS`` iterations, one host read each); the same
+    graph as ``csr``; registers byte for byte, the NF and the accumulators
+    within rtol 1e-9 of the plain version's run on the card;
+    :data:`HB_STEPS` single iterations against the plain step; a systolic
+    run (the transpose given, threshold 0.25) byte for byte the dense run.
+    Then timed: the run (CUDA events, median of 3 fresh objects), its
+    device time and busy share from a trace, its bound (each iteration's
+    bytes from its modified count), the plain version's run, and one
+    iteration alone (after :data:`HB_STEPS`) at :data:`HB_LEVEL_LOG2MS`,
+    with ``hll_pull_plain`` and ``scatter_reduce_(amax)`` over
+    ``regs[succ]`` at log2m 6.  Returns ``hll_pull``'s kernel row."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu_torch.algo import hyperball_device as HD
+    from webgraph_tpu_torch.kernels import _build
+    from webgraph_tpu_torch.kernels import hyperball as K
+    from webgraph_tpu_torch.kernels.propagate import _in_targets
+    from webgraph_tpu_torch.timing import (TRACES, cuda_ms, kernel_ms,
+                                           trace_busy)
+
+    n, m = bv.num_nodes(), bv.num_arcs()
+    disc = [lambda t: 0.5 ** t]
+    kw = dict(seed=0, do_sum_of_distances=True,
+              do_sum_of_inverse_distances=True, discount_functions=disc)
+    runs = []
+
+    def recorded(*args, **k):
+        runs.append(K.hll_levels(*args, **k))
+        return runs[-1]
+
+    # the path, counted: the stored graph, K1 on the card, one run
+    _reset_counts()
+    K.hll_pull.launches = K.hll_levels.reads = 0
+    hb, make_ms = _events_ms(
+        lambda: HD.HyperBallDevice(bv, log2m=HB_LOG2M, **kw))
+    _, first_ms = _events_ms(lambda: _hll_with(recorded, hb.run))
+    torch.cuda.synchronize()
+    c, launches, reads = _counts(), K.hll_pull.launches, K.hll_levels.reads
+    it = hb.iteration
+    check(c["k1"] == {"k1_parse": 1, "k2_resolve": 1}
+          and not any(c["k2"].values()) and c["probes"] == 0,
+          f"{label} hyperball: decode launches {c}")
+    check(it > 0 and hb.modified_counters() == 0
+          and launches == reads == -(-it // K.LEVELS) == len(runs),
+          f"{label} hyperball: {it} iterations, {launches} hll_pull "
+          f"launches, {reads} host reads")
+    check(torch.equal(hb.csr.offsets, csr.offsets)
+          and torch.equal(hb.csr.dst, csr.dst),
+          f"{label} hyperball: the decoded graph differs from the "
+          f"analytics phase's")
+    nf = np.asarray(hb.neighbourhood_function)
+    check(len(nf) == it + 1 and np.all(np.isfinite(nf))
+          and np.all(np.diff(nf) >= 0) and nf[0] > 0
+          and hb.registers.shape == (n, 1 << HB_LOG2M)
+          and hb.registers.dtype == torch.uint8,
+          f"{label} hyperball: NF or registers malformed")
+    mods = torch.cat([r.modified for r in runs])
+
+    # the plain version's run on the card, the same inputs
+    plain = HD.HyperBallDevice(csr, log2m=HB_LOG2M, **kw)
+    _, plain_run_ms = _events_ms(lambda: _hll_with(_hll_plain, plain.run))
+
+    def rel(a, b):
+        a, b = (torch.as_tensor(np.asarray(x), dtype=torch.float64)
+                for x in (a, b))
+        return float(((a - b).abs() / b.abs().clamp(min=1e-300)).max())
+
+    def same(a, b, what):
+        check(a.iteration == b.iteration
+              and torch.equal(a.registers, b.registers)
+              and torch.equal(a.modified, b.modified),
+              f"{label} hyperball: {what}: registers differ")
+        err = max(rel(a.neighbourhood_function, b.neighbourhood_function),
+                  rel(a.sum_of_distances.cpu(), b.sum_of_distances.cpu()),
+                  rel(a.sum_of_inverse_distances.cpu(),
+                      b.sum_of_inverse_distances.cpu()),
+                  rel(a.discounted_centralities[0].cpu(),
+                      b.discounted_centralities[0].cpu()),
+                  rel(a.reachable_nodes(), b.reachable_nodes()))
+        check(err <= 1e-9, f"{label} hyperball: {what}: NF or accumulators "
+              f"differ by {err}")
+        return err
+
+    err = same(hb, plain, "the run against the plain version's")
+    # single iterations, each against the plain step
+    a = HD.HyperBallDevice(csr, log2m=HB_LOG2M, **kw)
+    b = HD.HyperBallDevice(csr, log2m=HB_LOG2M, **kw)
+    for s in range(HB_STEPS):
+        a.iterate()
+        _hll_with(_hll_plain, b.iterate)
+        err = max(err, same(a, b, f"iteration {s + 1} against the plain "
+                                  f"step"))
+    del a, b, plain
+    # systolic: the transpose given, threshold 0.25
+    runs.clear()
+    sy = HD.HyperBallDevice(csr, transpose=csr.reversed(), log2m=HB_LOG2M,
+                            systolic_threshold=0.25, **kw)
+    _hll_with(recorded, sy.run)
+    nsys = int(torch.cat([r.systolic for r in runs]).sum())
+    check(sy.iteration == it and torch.equal(sy.registers, hb.registers)
+          and sy.neighbourhood_function == hb.neighbourhood_function
+          and 0 < nsys < it,
+          f"{label} hyperball: the systolic run ({nsys} systolic of "
+          f"{sy.iteration}) differs from the dense run")
+    del sy
+
+    # the run, timed on fresh objects
+    fresh = [HD.HyperBallDevice(csr, log2m=HB_LOG2M, **kw)
+             for _ in range(3 + TRACES)]
+    run_ms = statistics.median(_events_ms(o.run)[1] for o in fresh[:3])
+    spare = iter(fresh[3:])  # a trace taken again runs a fresh object
+    busy, dev = trace_busy(lambda: next(spare).run(), "hll_pull", launches)
+    run_dev_ms = sum(dev) if dev else None
+    del fresh
+    nb = [_hll_bytes(n, m, HB_LOG2M, int(k), HB_ACCUMULATORS)
+          for k in mods.tolist()]
+    run_bound = _bound(sum(nb), 0)[0]
+    run_bound_g = _bound(sum(nb) + it * (m << HB_LOG2M), 0)[0]
+
+    # one iteration alone after HB_STEPS, at each log2m, against the plain
+    # step at log2m 4 and 8 (6: above)
+    level_ms, level_bound, level_changed = {}, {}, {}
+    for lg in HB_LEVEL_LOG2MS:
+        o = HD.HyperBallDevice(csr, log2m=lg, **kw)
+        for _ in range(HB_STEPS):
+            o.iterate()
+        base = o._state
+
+        def one(base=base):
+            return K.hll_levels(csr.offsets, csr.dst, _hll_copy(base),
+                                max_levels=1, discount_functions=disc,
+                                order=csr.out_pull)
+
+        got = _hll_copy(base)
+        r = K.hll_levels(csr.offsets, csr.dst, got, max_levels=1,
+                         discount_functions=disc, order=csr.out_pull)
+        if lg != HB_LOG2M:
+            want = _hll_copy(base)
+            K.hll_levels_plain(csr.offsets, csr.dst, want, max_levels=1,
+                               discount_functions=disc)
+            check(torch.equal(got.registers, want.registers)
+                  and torch.equal(got.modified, want.modified)
+                  and rel(got.current.cpu(), want.current.cpu()) <= 1e-9
+                  and abs(got.nf - want.nf) <= 1e-9 * abs(want.nf),
+                  f"{label} hyperball: an iteration at log2m {lg} differs "
+                  f"from the plain step")
+        level_changed[lg] = int(r.modified[0])
+        level_ms[lg] = kernel_ms(one, 10, ("hll_pull",))["hll_pull"]
+        level_bound[lg] = _bound(_hll_bytes(n, m, lg, level_changed[lg],
+                                            HB_ACCUMULATORS), 0)
+        if lg == HB_LOG2M:
+            st = _hll_copy(base)
+            factors = [f(st.iteration + 1) for f in disc]
+            plain_ms = cuda_ms(lambda: K.hll_pull_plain(
+                csr.offsets, csr.dst, st.registers, state=_hll_copy(base),
+                factors=factors), 3)
+            gathered = st.registers[csr.dst.long()]
+            idx = _in_targets(csr.offsets).unsqueeze(1).expand(
+                -1, 1 << lg)
+            out = st.registers.clone()
+            library_ms = cuda_ms(lambda: out.scatter_reduce_(
+                0, idx, gathered, "amax", include_self=True), 5)
+            del gathered, idx, out, st
+        del o, base, got
+    bound_ms, bound_by = level_bound[HB_LOG2M]
+    with_gathers = _bound(_hll_bytes(n, m, HB_LOG2M,
+                                     level_changed[HB_LOG2M],
+                                     HB_ACCUMULATORS)
+                          + (m << HB_LOG2M), 0)[0]
+    blocks = {lg: _build.load().wgt_hll_pull_blocks(lg)
+              for lg in HB_LEVEL_LOG2MS}
+    work_mb = (2 * (n << HB_LOG2M) + 8 * (n + 1) + 4 * m + 2 * n
+               + 8 * n * (1 + HB_ACCUMULATORS)) / 1e6
+    print(f"{label} hyperball: n {n} m {m}, log2m {HB_LOG2M}, {it} "
+          f"iterations in {launches} hll_pull launch(es), {reads} host "
+          f"read(s); from_graph(bv) then the object {make_ms:.1f} ms; exact "
+          f"vs the plain version's run on the card (registers byte for byte; "
+          f"NF, both centralities, the discount, the estimates: max rel err "
+          f"{err:.3g}), {HB_STEPS} single iterations vs the plain step, "
+          f"log2m 4 and 8 one iteration vs the plain step; a systolic run "
+          f"(threshold 0.25, {nsys} of {it} iterations systolic) byte for "
+          f"byte the dense run; card {card}")
+    print(f"{label} hyperball run: {run_ms:.4f} ms (median of 3, CUDA "
+          f"events; the counted run {first_ms:.4f}), hll_pull "
+          + (f"{run_dev_ms:.4f} ms on the device = "
+             f"{run_dev_ms / it:.4f} ms an iteration" if dev else
+             "device time not measured")
+          + f", busy share "
+          + (f"{busy / run_ms:.4f}" if busy is not None else "not measured")
+          + f"; bound {run_bound:.4f} ms ({run_bound / it:.4f} an "
+          f"iteration; {run_bound_g:.4f} with the gathered rows), plain "
+          f"version's run {plain_run_ms:.1f} ms; card {card}")
+    print(f"{label} hyperball hll_pull: one iteration alone after "
+          f"{HB_STEPS}: "
+          + ", ".join(f"log2m {lg} {level_ms[lg]:.4f} ms (bound "
+                      f"{level_bound[lg][0]:.4f}, {level_changed[lg]} rows "
+                      f"changed, {blocks[lg]} blocks)"
+                      for lg in HB_LEVEL_LOG2MS)
+          + f"; log2m {HB_LOG2M}: bound with the gathered rows "
+          f"{with_gathers:.4f} ms, their L2 miss share not measured "
+          f"(buffers and out-CSR {work_mb:.1f} MB against a 50 MB L2); "
+          f"hll_pull_plain {plain_ms:.4f} ms, scatter_reduce_(amax) over "
+          f"regs[succ] {library_ms:.4f} ms; card {card}")
+    return {"launches": launches, "max_abs_err": 0, "max_rel_err": err,
+            "ms": level_ms[HB_LOG2M], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "iterations": it, "run_ms": run_ms,
+            "run_device_ms": run_dev_ms, "run_bound_ms": run_bound,
+            "run_bound_with_gathers_ms": run_bound_g,
+            "busy": None if busy is None else busy / run_ms,
+            "plain_run_ms": plain_run_ms,
+            "level_ms": {str(k): v for k, v in level_ms.items()},
+            "level_bound_ms": {str(k): v[0] for k, v in level_bound.items()},
+            "systolic_iterations": nsys,
+            "blocks": {str(k): v for k, v in blocks.items()}}
 
 
 def main():
@@ -2151,6 +2413,8 @@ def main():
                       k1["csr"], k1["scan"])
         pull = timed(phase_analytics, bv, "weblike-cnr2000-size", card,
                      k1["csr"])
+        hll = timed(phase_hyperball, bv, "weblike-cnr2000-size", card,
+                    pull.pop("csr"))
         if os.path.exists(CNR2000 + ".graph"):
             phase_main(BVGraph.load(CNR2000), "cnr-2000", card, tmp)
         else:
@@ -2218,6 +2482,15 @@ def main():
                                        "bfs_launch_ms", "bfs_levels",
                                        "blocks")}),
          "library_ms": pull["library_ms"]},
+        {**row("hll_pull", "webgraph_tpu_torch/csrc/hyperball.cu",
+               "webgraph_tpu/algo/hyperball_jax.py:38", hll,
+               note="no pallas_call: takes the place of the XLA programs "
+                    "hyperball_step (:38), hyperball_step_systolic (:49) "
+                    "and the rest of HyperBallJax.iterate (:109-135); ms, "
+                    "bound and plain: one iteration at log2m 6",
+               also_replaces="webgraph_tpu/algo/hyperball_jax.py:49",
+               **{k: hll[k] for k in HLL_EXTRAS}),
+         "library_ms": hll["library_ms"]},
     ]
     # the fragment probes: each run on the probe path of phase_probes
     for name, replaces in PROBE_REPLACES.items():

@@ -221,7 +221,7 @@ def test_weblike_graph_is_unchanged_without_big_sites():
 # ----------------------------------------------------------------------
 
 _SAME_SOURCE = ("transform/transform.py", "algo/bfs.py", "algo/nf.py",
-                "algo/components.py")
+                "algo/components.py", "algo/hyperball.py")
 
 
 @pytest.mark.parametrize("rel", _SAME_SOURCE)
@@ -231,6 +231,33 @@ def test_analytics_copies_differ_only_in_imports(rel):
     orig = open(os.path.join(here, "webgraph_tpu", rel)).read()
     copy = open(os.path.join(here, "webgraph_tpu_torch", rel)).read()
     assert copy == orig.replace("webgraph_tpu.", "webgraph_tpu_torch.")
+
+
+def test_hll_copy_differs_only_in_estimate_rows():
+    """algo/hll.py is its original up to ``estimate_rows``, the last
+    function, whose JAX body the copy replaces with a torch one."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    orig = open(os.path.join(here, "webgraph_tpu", "algo", "hll.py")).read()
+    copy = open(os.path.join(here, "webgraph_tpu_torch", "algo",
+                             "hll.py")).read()
+    cut = "\n\ndef estimate_rows("
+    assert orig.count(cut) == copy.count(cut) == 1
+    assert copy.split(cut)[0] == orig.split(cut)[0]
+    assert "jax" in orig.split(cut)[1] and "jax" not in copy.split(cut)[1]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 2**40 + 3])
+def test_register_init_matches(seed):
+    from webgraph_tpu.algo import hll as JH
+    from webgraph_tpu_torch.algo import hll as PH
+
+    for n, log2m in ((0, 4), (1, 4), (500, 4), (333, 6), (100, 10)):
+        np.testing.assert_array_equal(PH.register_init(n, log2m, seed),
+                                      JH.register_init(n, log2m, seed))
+    p, j = PH.HyperLogLogCounterArray(300, 5, seed), \
+        JH.HyperLogLogCounterArray(300, 5, seed)
+    assert p.alpha_mm == j.alpha_mm
+    np.testing.assert_array_equal(p.counts(), j.counts())
 
 
 def _both(n, p, seed):

@@ -31,7 +31,8 @@ names = [m.name for m in pkgutil.walk_packages(webgraph_tpu_torch.__path__,
 for name in names:
     __import__(name)
 for name in ("algo.bfs", "algo.centralities", "algo.components", "algo.device",
-             "algo.nf", "algo.sumsweep", "kernels.propagate",
+             "algo.nf", "algo.sumsweep", "kernels.propagate", "algo.hll",
+             "algo.hyperball", "algo.hyperball_device", "kernels.hyperball",
              "transform.device", "transform.transform",
              "bits.bitstream", "bits.codes", "bits.vcodes", "bits.elias_fano",
              "graph.builders", "graph.csr", "graph.immutable_graph",
@@ -69,7 +70,8 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
     assert set(_build.SOURCES) == {"decode2.cu", "decode.cu", "propagate.cu",
-                                   "probes.cu", "loops.cu", "forms.cu"}
+                                   "hyperball.cu", "probes.cu", "loops.cu",
+                                   "forms.cu"}
     paths = [_build.library_path(s) for s in _build.SOURCES]
     assert len(set(paths)) == len(paths)  # one library per source
     for src, path in zip(_build.SOURCES, paths):
@@ -132,7 +134,8 @@ def test_entry_points_default_to_the_card(entry):
     "algo.device.DeviceCSR", "algo.device.DeviceCSR.from_graph",
     "algo.centralities.GeometricCentralities",
     "algo.centralities.BetweennessCentrality",
-    "algo.sumsweep.SumSweepDirectedDiameterRadius"])
+    "algo.sumsweep.SumSweepDirectedDiameterRadius",
+    "algo.hyperball_device.HyperBallDevice"])
 def test_analytics_entry_points_default_to_the_card(entry):
     import importlib
     import inspect

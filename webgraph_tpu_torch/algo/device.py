@@ -53,9 +53,10 @@ class DeviceCSR:
     """A graph resident on a torch device: the out-arcs ``src``/``dst``
     (int32[m], by source) and the in-CSR ``in_off`` (int64[n+1]) /
     ``in_src`` (int32[m]), the transpose, built on the device at
-    construction (``transform/device.py::transpose_arcs_device``), and
+    construction (``transform/device.py::transpose_arcs_device``),
     ``pull``, the nodes by in-degree that ``or_pull`` maps to lanes
-    (``kernels.propagate.pull_order``)."""
+    (``kernels.propagate.pull_order``), and :attr:`out_pull`, the nodes by
+    out-degree that ``hll_pull`` maps to lanes (made at first use)."""
 
     def __init__(self, offsets, succ, n: int | None = None, device="cuda"):
         self.device = torch.device(device)
@@ -67,6 +68,17 @@ class DeviceCSR:
         self.in_off, self.in_src, _ = transpose_arcs_device(
             self.src, self.dst, self.n)
         self.pull = pull_order(self.in_off)
+        self._out_pull = None
+
+    @property
+    def out_pull(self):
+        """:func:`kernels.propagate.pull_order` of the out-CSR: the nodes
+        by out-degree and their out-arc ranges in ``dst``, for a pull over
+        the successors (HyperBall's register max); one sort, at first
+        use."""
+        if self._out_pull is None:
+            self._out_pull = pull_order(self.offsets)
+        return self._out_pull
 
     @classmethod
     def from_graph(cls, g, device="cuda"):
@@ -83,7 +95,7 @@ class DeviceCSR:
         t.device, t.n, t.m = self.device, self.n, self.m
         t.offsets, t.in_off, t.in_src = self.in_off, self.offsets, self.dst
         t.src, t.dst = arcs_of(self.in_off, self.in_src)
-        t.pull = pull_order(t.in_off)
+        t.pull, t._out_pull = self.out_pull, self.pull
         return t
 
 

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_D = ctypes.c_double
 # C entry points of each source: every pointer and the stream as void*
 _SIGNATURES = {
     "decode2.cu": {
@@ -69,6 +70,16 @@ _SIGNATURES = {
                         _I, _P),
         # perbit
         "wgt_or_pull_blocks": (_I,),
+    },
+    "hyperball.cu": {
+        # succ, order, bounds, span, n, log2m, in, a, b, fin, fa, fb, cur,
+        # w, sod, soi, disc, nd, factors, alpha_mm, mod0, nf0, thr,
+        # systolic, sys_thr, it0, cap, stat, stream
+        "wgt_hll_pull": (_P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _I, _P, _D, _L, _D, _D,
+                         _I, _D, _I, _I, _P, _P),
+        # log2m
+        "wgt_hll_pull_blocks": (_I,),
     },
     "probes.cu": {
         # words, nbits, starts, lanes, k, coding, zeta_k, out, stream
@@ -214,7 +225,7 @@ def load() -> types.SimpleNamespace:
 def registers(source: str, kernels) -> dict:
     """Registers of each of ``kernels`` (names of ``__global__`` functions
     of ``source``) as ``ptxas -v`` reported them when the library was
-    built."""
+    built; of a template, the most any of its instances uses."""
     regs, name = {}, None
     with open(library_path(source) + ".ptxas") as f:
         for line in f:
@@ -225,7 +236,7 @@ def registers(source: str, kernels) -> dict:
             if m and name:
                 for k in kernels:  # a mangled name holds <length><name>
                     if f"{len(k)}{k}" in name:
-                        regs[k] = int(m.group(1))
+                        regs[k] = max(regs.get(k, 0), int(m.group(1)))
                 name = None
     return regs
 

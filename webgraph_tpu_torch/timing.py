@@ -1,13 +1,14 @@
 """Device timing of the port's kernels: CUDA events around whole calls, and
-``torch.profiler`` traces for each kernel's own device time.  Used by
-``chip_smoke.py`` and :mod:`webgraph_tpu_torch.profile_k2`; torch is
-imported when a function runs, so the module imports anywhere."""
+``torch.profiler`` traces for each kernel's own device time and a call's
+busy share.  Used by ``chip_smoke.py``, :mod:`webgraph_tpu_torch.profile_k2`
+and ``tools/analytics_times.py``; torch is imported when a function runs,
+so the module imports anywhere."""
 
 from __future__ import annotations
 
 import statistics
 
-TRACES = 3  # traces kernel_runs takes before it gives up
+TRACES = 3  # traces kernel_runs and trace_busy take before they give up
 
 
 class NoWholeRun(RuntimeError):
@@ -70,3 +71,26 @@ def kernel_ms(fn, reps, names):
     runs = kernel_runs(fn, reps, names)
     return {k: statistics.median((r[k][1] - r[k][0]) / 1e3 for r in runs)
             for k in names}
+
+
+def trace_busy(fn, kernel, launches=0):
+    """``(device ms, ms of each launch of kernel)`` of one run of ``fn``
+    under ``torch.profiler``, device activity only: the summed durations of
+    its kernels, copies and memsets, and those of its launches of the kernel
+    whose name holds ``kernel``.  A trace that holds no device activity, or
+    fewer than ``launches`` launches of it (the profiler dropped records),
+    is taken again, up to :data:`TRACES` times; then ``(None, [])``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(TRACES):
+        with profile(activities=[ProfilerActivity.CUDA]) as t:
+            fn()
+            torch.cuda.synchronize()
+        dur = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+               for e in t.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        runs = [d for k, d in dur if kernel in k]
+        if dur and len(runs) >= launches:
+            return sum(d for _, d in dur), runs
+    return None, []

@@ -11,8 +11,9 @@ reads, the median ``or_pull`` launch's device ms and the busy share
 
 ``CHECKOUT`` (default: the checkout holding this file) names the checkout
 whose ``webgraph_tpu_torch`` is timed, so that two commits compare on one
-card.  Prints the card's name and power limit, then one JSON line.  Needs a
-CUDA device; the graphs are built on the host."""
+card (the checkout's ``webgraph_tpu_torch/timing.py`` must have
+``trace_busy``).  Prints the card's name and power limit, then one JSON
+line.  Needs a CUDA device; the graphs are built on the host."""
 
 from __future__ import annotations
 
@@ -27,27 +28,6 @@ NF_BATCHES = 4
 GEO_BATCHES = 2
 SUMSWEEP_NODES = 20_000
 SUMSWEEP_DIRECTED_NODES = 8_000
-TRACES = 3  # traces taken before a busy share is not measured
-
-
-def _trace_busy(fn, launches):
-    """(device ms, or_pull ms of each launch) of one traced run of ``fn``;
-    a trace that dropped records (fewer than ``launches`` or_pull
-    launches) is taken again, up to :data:`TRACES` times; then None."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(TRACES):
-        with profile(activities=[ProfilerActivity.CUDA]) as t:
-            fn()
-            torch.cuda.synchronize()
-        dur = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-               for e in t.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        pulls = [d for k, d in dur if "or_pull" in k]
-        if dur and len(pulls) >= launches:
-            return sum(d for _, d in dur), pulls
-    return None, []
 
 
 def main(root: str) -> dict:
@@ -59,7 +39,7 @@ def main(root: str) -> dict:
         OutputLevel, SumSweepDirectedDiameterRadius)
     from webgraph_tpu_torch.kernels import propagate as P
     from webgraph_tpu_torch.synth import weblike_graph
-    from webgraph_tpu_torch.timing import cuda_ms
+    from webgraph_tpu_torch.timing import cuda_ms, trace_busy
     from webgraph_tpu_torch.transform import transform as T
     from webgraph_tpu_torch.utils.rng import XoRoShiRo128PlusRandom
 
@@ -106,7 +86,7 @@ def main(root: str) -> dict:
             o.update(ms=o["first_ms"], pull_ms=None, busy=None)
         else:
             o["ms"] = cuda_ms(fn, 3)
-            busy, times = _trace_busy(fn, o["launches"])
+            busy, times = trace_busy(fn, "or_pull", o["launches"])
             o["pull_ms"] = statistics.median(times) if times else None
             o["busy"] = None if busy is None else busy / o["ms"]
         out[name] = o
