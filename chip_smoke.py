@@ -4,7 +4,8 @@
 Drives the port's main path, bulk BVGraph decode into CSR, on the card,
 through its two routes (K1 for reference chains that reach back at most
 256 nodes, K2 for longer ones), batched random access through K1's
-kernels, the analytics and HyperBall on the decoded graph, and the probe
+kernels, the analytics and HyperBall on the decoded graph, the encoder
+back to BVGraph bytes from the decoded CSR, and the probe
 path (the fragment probes on the TPU probe scripts' inputs), using only
 the port's own modules:
 
@@ -87,7 +88,18 @@ the port's own modules:
    the card, then one ``hll_pull`` launch for the whole run) at log2m 6
    with both centralities and a discount function, counted from 0, held
    to the plain version's run on the card, three single iterations to the
-   plain step, a systolic run to the dense one, then timed.
+   plain step, a systolic run to the dense one, then timed;
+14. the encoder on the K1 cell after HyperBall (``phase_encode``):
+   ``formats.bvgraph_encode.encode_device`` on the CUDA CSR that K1
+   decoded, counted from 0 (``enc_costs``, ``enc_select``, ``enc_emit``
+   once each, two host reads), byte for byte the cell's stored ``.graph``
+   and ``.offsets``, its stats equal to the native encoder's, each kernel
+   exactly against its plain version on the same inputs, then timed (the
+   encode, each kernel, the busy share, the bounds, the native host
+   encoder beside it); the card's transpose of the cell against the
+   native store of the host transpose; and, after phases 9 and 10, the
+   two K2 cells encoded from their CUDA CSRs, byte for byte their stores
+   (``phase_encode_bytes``).
 
 It prints a JSON line of per-kernel results and, last, a JSON line with the
 device.  Any failure raises, so the exit code is not 0 and no last line is
@@ -185,6 +197,7 @@ KERNELS = {"decode2.cu": ("k1_parse", "k0_probe"),
            "decode.cu": ("k2_parse", "k2_resolve", "k2_compact_probe"),
            "propagate.cu": ("or_pull",),
            "hyperball.cu": ("hll_pull",),
+           "encode.cu": ("enc_costs", "enc_select", "enc_emit"),
            "probes.cu": tuple(PROBE_REPLACES),
            "loops.cu": tuple(LOOP_REPLACES)
            + ("probe_v6_trip", "probe_v6_fetch", "probe_body_loop"),
@@ -2377,6 +2390,290 @@ def phase_hyperball(bv, label, card, csr):
             "blocks": {str(k): v for k, v in blocks.items()}}
 
 
+# the encoder's kernels and the functions of the JAX module each replaces
+ENC_REPLACES = {
+    "enc_costs": "webgraph_tpu/formats/bvgraph_jax_encode.py:449",
+    "enc_select": "webgraph_tpu/formats/bvgraph_jax_encode.py:487",
+    "enc_emit": "webgraph_tpu/formats/bvgraph_jax_encode.py:651"}
+ENC_NOTES = {
+    "enc_costs": "no pallas_call: takes the place of the XLA program "
+                 "compute_costs (:449); a thread a (node, shift) merge",
+    "enc_select": "no pallas_call: takes the place of the XLA scan "
+                  "select_references (:487); one thread runs the chain, "
+                  "its bound the larger of bytes and operations, the chain "
+                  "in chain_ms",
+    "enc_emit": "no pallas_call: takes the place of the XLA programs "
+                "_chosen_structure (:520), emit_graph (:651) and "
+                "emit_offsets (:795); a thread a record"}
+ENC_PLAIN_SELECT_S = 30.0  # the host selection loop runs at size under this
+ENC_PLAIN_SELECT_NODES = 20_000  # else on these first nodes
+# the serial chain of enc_select: a compare, a select and an add a node,
+# 4 cycles each at the H100 SXM's 1,980 MHz boost clock
+ENC_CHAIN_OPS, ENC_OP_CYCLES, ENC_CLOCK_HZ = 3, 4, 1.98e9
+
+
+def _stored(base):
+    with open(base + ".graph", "rb") as f:
+        gb = f.read()
+    with open(base + ".offsets", "rb") as f:
+        return gb, f.read()
+
+
+def _enc_counts():
+    from webgraph_tpu_torch.formats import bvgraph_encode as E
+    from webgraph_tpu_torch.kernels import encode as KE
+
+    return ({k: getattr(KE, k).launches for k in ENC_REPLACES},
+            E.encode_device.reads)
+
+
+def _enc_reset():
+    from webgraph_tpu_torch.formats import bvgraph_encode as E
+    from webgraph_tpu_torch.kernels import encode as KE
+
+    for k in ENC_REPLACES:
+        getattr(KE, k).launches = 0
+    E.encode_device.reads = 0
+
+
+def _enc_work(off, n, m, w, tb, tob):
+    """Bytes and operations each encode kernel must move and do on these
+    inputs: each input read once, each output written once; an operation a
+    merge step (the steps of a pair are at most d(x) + d(z)) and a
+    selection compare."""
+    d = (off[1:] - off[:-1]).cpu()
+    cbs = w + 1
+    steps = cbs * m + sum(int(d[: n - r].sum()) for r in range(1, cbs))
+    table = 5 * n * cbs  # costs int32 and valid bool
+    return {
+        "enc_costs": (8 * (n + 1) + 4 * m + table, steps),
+        "enc_select": (table + 8 * n, n * cbs),
+        "enc_emit": (8 * (n + 1) + 4 * m + 8 * n + 8 * (n + 1) + 8 * (n + 2)
+                     + (tb + tob) // 8 + 8 * 77, 2 * m),
+    }
+
+
+def phase_encode_bytes(label, base, csr, settings):
+    """A cell's CSR on the card (its decode's output) encoded on the card,
+    byte for byte the cell's stored ``.graph`` and ``.offsets`` (the
+    port's native store); returns the encode's CUDA-event ms."""
+    from webgraph_tpu_torch.formats import bvgraph_encode as E
+
+    off, succ = csr
+    _enc_reset()
+    (gb, _, ob, _, _), ms = _events_ms(
+        lambda: E.encode_device(off, succ, settings))
+    launches, reads = _enc_counts()
+    check((gb, ob) == _stored(base),
+          f"{label} encode: bytes differ from the stored graph")
+    check(set(launches.values()) == {1} and reads == 2,
+          f"{label} encode: launches {launches}, reads {reads}")
+    m = succ.numel()
+    print(f"{label} encode: n {off.numel() - 1} m {m}, window "
+          f"{settings.window_size} maxref {settings.max_ref_count} minint "
+          f"{settings.min_interval_length}: bytes equal the stored graph; "
+          f"{ms:.4f} ms (one call, CUDA events) = {m / ms / 1e3:.2f} "
+          f"Medges/s, launches {launches}, reads {reads}")
+    return ms
+
+
+def phase_encode(bv, label, card, csr, base):
+    """The encoder on the K1 cell at size, from ``csr``, the CSR that K1
+    decoded on the card: ``encode_device`` with every count reset just
+    before and read just after (``enc_costs``, ``enc_select``, ``enc_emit``
+    once each, two host reads, no decode), the bytes equal to the cell's
+    stored ``.graph``/``.offsets`` and the stats to ``native.bvgraph_encode``'s;
+    each kernel exactly against its plain version on the same inputs
+    (the host selection loop at size if it takes under
+    :data:`ENC_PLAIN_SELECT_S`, else on the first
+    :data:`ENC_PLAIN_SELECT_NODES` nodes); then timed: the encode (median
+    of 3 after a warm-up, CUDA events, the bytes compared every run), each
+    kernel by CUDA events, its device time and the busy share from traces
+    that show all three, the kernels on the generator without its 12 hubs,
+    the bounds,
+    the plain versions and the native host encoder as a yardstick; last the
+    card's transpose of the cell encoded against the native store of the
+    host transpose.  Returns the kernels' rows."""
+    import numpy as np
+    import torch
+
+    from webgraph_tpu_torch import native
+    from webgraph_tpu_torch.formats import bvgraph_encode as E
+    from webgraph_tpu_torch.graph.csr import CSRGraph
+    from webgraph_tpu_torch.kernels import _build
+    from webgraph_tpu_torch.kernels import encode as KE
+    from webgraph_tpu_torch.synth import weblike_graph
+    from webgraph_tpu_torch.timing import cuda_ms, kernel_ms, kernel_runs
+    from webgraph_tpu_torch.transform import transform as T
+    from webgraph_tpu_torch.transform.device import (arcs_of,
+                                                     transpose_arcs_device)
+
+    s = bv.settings
+    skey = E.skey_of(s)
+    off, succ = csr
+    n, m, w = off.numel() - 1, succ.numel(), s.window_size
+    stored = _stored(base)
+
+    def encode():
+        return E.encode_device(off, succ, s)
+
+    # the path, counted
+    _reset_counts()
+    _enc_reset()
+    (gb, gbits, ob, obits, st), first_ms = _events_ms(encode)
+    launches, reads = _enc_counts()
+    c = _counts()
+    check(set(launches.values()) == {1} and reads == 2,
+          f"{label} encode: launches {launches}, host reads {reads}")
+    check(not any(c["k1"].values()) and not any(c["k2"].values()),
+          f"{label} encode: decode launches {c}")
+    check((gb, ob) == stored, f"{label} encode: bytes differ from the "
+                              f"stored .graph/.offsets")
+    off_h, succ_h = off.cpu().numpy(), succ.cpu().numpy()
+    t0 = time.perf_counter()
+    nat = native.bvgraph_encode(off_h, succ_h, s)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    check(nat is not None and (nat[0], nat[2]) == stored,
+          f"{label} encode: the native encoder differs from the store")
+    raw = nat[4]
+    mine = np.array([st[k] for k in (
+        "bits_outdegrees", "bits_references", "bits_blocks",
+        "bits_intervals", "bits_residuals", "copied_arcs",
+        "intervalised_arcs", "residual_arcs", "tot_ref", "tot_dist")]
+        + list(st["successor_gap_stats"]) + list(st["residual_gap_stats"]))
+    check(np.array_equal(mine, raw),
+          f"{label} encode: stats differ from the native encoder's")
+
+    # each kernel against its plain version, the same inputs
+    costs, valid = KE.enc_costs(off, succ, skey)
+    (pc, pv), costs_plain = _events_ms(lambda: KE.enc_costs_plain(
+        off, succ, skey))
+    check(torch.equal(costs, pc) and torch.equal(valid, pv),
+          f"{label} encode: enc_costs differs from its plain version")
+    del pc, pv
+    refs, depths = KE.enc_select(costs, valid, s.max_ref_count)
+    cut = ENC_PLAIN_SELECT_NODES
+    t0 = time.perf_counter()
+    KE.enc_select_plain(costs[:cut], valid[:cut], s.max_ref_count)
+    cut_s = time.perf_counter() - t0
+    rows = n if cut_s * n / cut < ENC_PLAIN_SELECT_S else cut
+    t0 = time.perf_counter()
+    pr, pd = KE.enc_select_plain(costs[:rows], valid[:rows], s.max_ref_count)
+    select_plain = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(refs[:rows], pr) and torch.equal(depths[:rows], pd),
+          f"{label} encode: enc_select differs from its plain version")
+    nb = E.node_bits_of(off, costs, refs, skey)
+    starts = torch.cat([nb.new_zeros(1), torch.cumsum(nb, 0)])
+    opos = KE.offset_positions(nb, s.offset_coding, s.zeta_k)
+    outs = {}
+    for name, emit in (("kernel", KE.enc_emit), ("plain", KE.enc_emit_plain)):
+        words = torch.zeros((gbits + 31) // 32 + 2, dtype=torch.int32,
+                            device=off.device)
+        owords = torch.zeros((obits + 31) // 32 + 2, dtype=torch.int32,
+                             device=off.device)
+        stats = torch.zeros(KE.STATS + 1, dtype=torch.int64,
+                            device=off.device)
+        _, ms = _events_ms(lambda: emit(
+            off, succ, refs, depths, starts, skey, stats, words=words,
+            opos=opos, owords=owords, offset_coding=s.offset_coding))
+        outs[name] = (words, owords, stats, ms)
+    for a, b in zip(outs["kernel"][:3], outs["plain"][:3]):
+        check(torch.equal(a, b), f"{label} encode: enc_emit differs from "
+                                 f"its plain version")
+    emit_plain = outs["plain"][3]
+    outs_kernel = outs["kernel"][:3]
+    del outs
+
+    # timing: the encode, each kernel alone by CUDA events (enc_emit with
+    # its two streams zeroed first, as an encode does), each kernel's
+    # device time and the busy share (the three kernels' device time over
+    # the call) from traces that show all three launches
+    encode()
+    times = []
+    for _ in range(3):
+        out, ms = _events_ms(encode)
+        check((out[0], out[2]) == stored, f"{label} encode: a timed run's "
+                                          f"bytes differ")
+        times.append(ms)
+    encode_ms = statistics.median(times)
+    words, owords, stats = (torch.zeros_like(t) for t in outs_kernel)
+
+    def emit():
+        for t in (words, owords, stats):
+            t.zero_()
+        KE.enc_emit(off, succ, refs, depths, starts, skey, stats,
+                    words=words, opos=opos, owords=owords,
+                    offset_coding=s.offset_coding)
+
+    kms = {"enc_costs": cuda_ms(lambda: KE.enc_costs(off, succ, skey), 3),
+           "enc_select": cuda_ms(lambda: KE.enc_select(
+               costs, valid, s.max_ref_count), 3),
+           "enc_emit": cuda_ms(emit, 3)}
+    runs = kernel_runs(encode, 3, tuple(ENC_REPLACES))
+    dev_ms = {k: statistics.median((r[k][1] - r[k][0]) / 1e3 for r in runs)
+              for k in ENC_REPLACES}
+    busy = statistics.median(sum(e - b for b, e in r.values()) / 1e3
+                             for r in runs) / encode_ms
+    # the same generator without its 12 hubs: what the long lists cost
+    hoff, hsucc = (torch.as_tensor(np.asarray(a), device=off.device)
+                   for a in weblike_graph(hubs=0).to_csr())
+    hoff, hsucc = hoff.long(), hsucc.int()
+    hubless_ms = kernel_ms(lambda: E.encode_device(hoff, hsucc, s), 3,
+                           tuple(ENC_REPLACES))
+    del hoff, hsucc
+    work = _enc_work(off, n, m, w, gbits, obits)
+    bounds = {k: _bound(*v) for k, v in work.items()}
+    chain_ms = n * ENC_CHAIN_OPS * ENC_OP_CYCLES / ENC_CLOCK_HZ * 1e3
+    plain = {"enc_costs": costs_plain, "enc_select": select_plain,
+             "enc_emit": emit_plain}
+
+    # the card's transpose of the cell against the native store of the
+    # host transpose (config 4 / config 8's composition)
+    t_off, t_succ, _ = transpose_arcs_device(*arcs_of(off, succ), n)
+    (tg, _, to, _, _), transpose_ms = _events_ms(
+        lambda: E.encode_device(t_off, t_succ, s))
+    ht_off, ht_succ = T.transpose(CSRGraph(off_h, succ_h)).to_csr()
+    tnat = native.bvgraph_encode(ht_off, ht_succ, s)
+    check((tg, to) == (tnat[0], tnat[2]),
+          f"{label} encode: the transpose's bytes differ from the native "
+          f"store of the host transpose")
+
+    regs = _build.registers("encode.cu", tuple(ENC_REPLACES))
+    print(f"{label} encode: n {n} m {m}, from the CUDA CSR K1 decoded: "
+          f"launches {launches}, {reads} host reads, no decode launch; "
+          f".graph ({gbits} bits) and .offsets ({obits} bits) byte for byte "
+          f"the stored ones, stats equal to native.bvgraph_encode's; "
+          f"enc_costs, enc_emit exact against their plain versions, "
+          f"enc_select on {rows} nodes; card {card}")
+    print(f"{label} encode: {encode_ms:.4f} ms (median of 3, CUDA events; "
+          f"the counted call {first_ms:.4f}) = {m / encode_ms / 1e3:.2f} "
+          f"Medges/s, busy share {busy:.4f} (the kernels' device time, "
+          f"{len(runs)} whole traced calls)"
+          + "; " + ", ".join(
+              f"{k} {kms[k]:.4f} ms (CUDA events, median of 3; device "
+              f"{dev_ms[k]:.4f}, without the hubs {hubless_ms[k]:.4f}; "
+              f"bound {bounds[k][0]:.4f}, {bounds[k][1]}; plain "
+              f"{plain[k]:.1f}; {regs.get(k)} registers)"
+              for k in ENC_REPLACES)
+          + f"; enc_select's chain {chain_ms:.4f} ms; native host encoder "
+          f"{native_ms:.1f} ms; the transpose's encode {transpose_ms:.4f} "
+          f"ms, bytes equal; card {card}")
+    rows_out = {}
+    for k in ENC_REPLACES:
+        rows_out[k] = {"launches": launches[k], "max_abs_err": 0,
+                       "ms": kms[k], "plain_ms": plain[k],
+                       "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                       "device_ms": dev_ms[k], "hubless_ms": hubless_ms[k]}
+    rows_out["enc_select"].update(chain_ms=chain_ms, plain_nodes=rows)
+    rows_out["encode"] = {
+        "ms": encode_ms, "medges_s": m / encode_ms / 1e3, "reads": reads,
+        "launches": sum(launches.values()),
+        "busy": busy,
+        "native_ms": native_ms, "transpose_ms": transpose_ms,
+        "k2_cells_ms": {}}
+    return rows_out
+
+
 def main():
     import torch
 
@@ -2415,6 +2712,8 @@ def main():
                      k1["csr"])
         hll = timed(phase_hyperball, bv, "weblike-cnr2000-size", card,
                     pull.pop("csr"))
+        enc = timed(phase_encode, bv, "weblike-cnr2000-size", card,
+                    k1["csr"], os.path.join(tmp, "weblike-cnr2000-size"))
         if os.path.exists(CNR2000 + ".graph"):
             phase_main(BVGraph.load(CNR2000), "cnr-2000", card, tmp)
         else:
@@ -2424,8 +2723,13 @@ def main():
         bv = _cell(tmp, label)
         k2 = timed(phase_k2_main, bv, label, card)
         timed(phase_query, bv, label, card, k2["csr"], k2["scan"])
+        enc["encode"]["k2_cells_ms"][label] = phase_encode_bytes(
+            label, os.path.join(tmp, label), k2["csr"], bv.settings)
         label = "deep-chain-config3-minint2"
-        timed(phase_k2_main, _cell(tmp, label), label, card)
+        bv = _cell(tmp, label)
+        deep = timed(phase_k2_main, bv, label, card)
+        enc["encode"]["k2_cells_ms"][label] = phase_encode_bytes(
+            label, os.path.join(tmp, label), deep["csr"], bv.settings)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "webgraph_tpu"))
     check(not leaked, f"the port imported JAX or webgraph_tpu: {leaked[:5]}")
@@ -2492,6 +2796,22 @@ def main():
                **{k: hll[k] for k in HLL_EXTRAS}),
          "library_ms": hll["library_ms"]},
     ]
+    # the encoder: each kernel on the K1 cell's CSR; the encode's numbers,
+    # the transpose's and the K2 cells' (ms an encode) under "encode"
+    for name, replaces in ENC_REPLACES.items():
+        extra = {k: enc[name][k] for k in ("device_ms", "hubless_ms")}
+        if name == "enc_costs":
+            extra["encode"] = enc["encode"]
+        if name == "enc_select":
+            extra.update({k: enc[name][k] for k in ("chain_ms",
+                                                    "plain_nodes")})
+        if name == "enc_emit":
+            extra["also_replaces"] = [
+                "webgraph_tpu/formats/bvgraph_jax_encode.py:795",
+                "webgraph_tpu/formats/bvgraph_jax_encode.py:520"]
+        kernels.append(row(name, "webgraph_tpu_torch/csrc/encode.cu",
+                           replaces, enc[name], note=ENC_NOTES[name],
+                           **extra))
     # the fragment probes: each run on the probe path of phase_probes
     for name, replaces in PROBE_REPLACES.items():
         r = probes[name]

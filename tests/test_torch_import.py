@@ -44,7 +44,7 @@ for name in ("algo.bfs", "algo.centralities", "algo.components", "algo.device",
              "probes.fetch", "probes.onehot", "probes.loops", "probes.timing5",
              "probes.bisect4", "probes.bisect3", "probes.perf", "probes.forms",
              "probes.caps", "probes.bisect", "probes.bisect2", "probes.v6",
-             "probes.v6b"):
+             "probes.v6b", "formats.bvgraph_encode", "kernels.encode"):
     assert "webgraph_tpu_torch." + name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -70,8 +70,8 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
     assert set(_build.SOURCES) == {"decode2.cu", "decode.cu", "propagate.cu",
-                                   "hyperball.cu", "probes.cu", "loops.cu",
-                                   "forms.cu"}
+                                   "hyperball.cu", "encode.cu", "probes.cu",
+                                   "loops.cu", "forms.cu"}
     paths = [_build.library_path(s) for s in _build.SOURCES]
     assert len(set(paths)) == len(paths)  # one library per source
     for src, path in zip(_build.SOURCES, paths):

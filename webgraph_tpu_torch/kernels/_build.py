@@ -27,7 +27,7 @@ import types
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-HEADERS = ("pcodes.cuh", "records.cuh")
+HEADERS = ("pcodes.cuh", "records.cuh", "wcodes.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,6 +80,19 @@ _SIGNATURES = {
                          _I, _D, _I, _I, _P, _P),
         # log2m
         "wgt_hll_pull_blocks": (_I,),
+    },
+    "encode.cu": {
+        # off, succ, n, outd, ref, bcnt, blk, res, zeta_k, window, minint,
+        # shard_start, costs, valid, stream
+        "wgt_enc_costs": (_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+                          _P, _P, _P),
+        # costs, valid, n, window, maxref, refs, depths, stream
+        "wgt_enc_select": (_P, _P, _L, _I, _L, _P, _P, _P),
+        # off, succ, refs, depths, starts, n, outd, ref, bcnt, blk, res,
+        # zeta_k, window, minint, words, opos, offset coding, owords, stats,
+        # stream
+        "wgt_enc_emit": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P, _P, _I, _P, _P, _P),
     },
     "probes.cu": {
         # words, nbits, starts, lanes, k, coding, zeta_k, out, stream
