@@ -407,9 +407,9 @@ def _reset_counts():
 
 def _counts():
     """Launches since the last reset: each kernel by name under the route
-    whose wrapper launched it (``k1``: ``decode2.decode_records``, ``k2``:
-    ``decode.decode_levels``), and ``probes``: the probes and the parses
-    alone (none on a main path)."""
+    whose wrapper launched it (``k1``: ``decode2.decode_records``, with
+    its reads from the card; ``k2``: ``decode.decode_levels``), and
+    ``probes``: the probes and the parses alone (none on a main path)."""
     from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels import pcodes as P
@@ -505,7 +505,8 @@ def phase_main(bv, label, card, tmpdir):
     off, succ = wgt.decode_to_csr(bv, device="cuda")
     torch.cuda.synchronize()
     c = _counts()
-    check(c["k1"] == {"k1_parse": 1, "k2_resolve": int(depth > 0)}
+    check(c["k1"] == {"k1_parse": 1, "k2_resolve": int(depth > 0),
+                      "reads": 1}
           and not any(c["k2"].values()) and c["probes"] == 0,
           f"{label}: launches {c}, max depth {depth}")
     _csr_vs_oracle(bv, off, succ, label)
@@ -1685,7 +1686,8 @@ def phase_query(bv, label, card, csr, scan):
         out, counts = qp.successors_batch(nodes)
         torch.cuda.synchronize()
         c = _counts()
-        check(c["k1"] == {"k1_parse": 1, "k2_resolve": int(deep)}
+        check(c["k1"] == {"k1_parse": 1, "k2_resolve": int(deep),
+                          "reads": 1}
               and not any(c["k2"].values()) and c["probes"] == 0,
               f"{label} query {size}: launches {c}")
         for k in launches:
@@ -1897,7 +1899,8 @@ def phase_analytics(bv, label, card, csr_bulk):
     launches = P.or_pull.launches
     reads = dict(A.host_reads)
     c2 = _counts()
-    check(c == c2 and c["k1"] == {"k1_parse": 1, "k2_resolve": 1}
+    check(c == c2 and c["k1"] == {"k1_parse": 1, "k2_resolve": 1,
+                                  "reads": 1}
           and not any(c["k2"].values()) and c["probes"] == 0,
           f"{label} analytics: decode launches {c} then {c2}")
     check(launches == sum(o["launches"] for o in ops.values()) > 0,
@@ -2212,7 +2215,7 @@ def phase_hyperball(bv, label, card, csr):
     torch.cuda.synchronize()
     c, launches, reads = _counts(), K.hll_pull.launches, K.hll_levels.reads
     it = hb.iteration
-    check(c["k1"] == {"k1_parse": 1, "k2_resolve": 1}
+    check(c["k1"] == {"k1_parse": 1, "k2_resolve": 1, "reads": 1}
           and not any(c["k2"].values()) and c["probes"] == 0,
           f"{label} hyperball: decode launches {c}")
     check(it > 0 and hb.modified_counters() == 0

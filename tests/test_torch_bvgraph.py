@@ -161,10 +161,12 @@ def test_kernel_matches_plain_and_oracle_on_card(name, tmp_path, cuda):
     before = _counts()
     succ = D2.decode_records(*args, **sizes)
     torch.cuda.synchronize()
-    # k1_parse, and k2_resolve when a node has a parent
+    # k1_parse, and k2_resolve when a node has a parent; one read, the
+    # error check
     deep = int(len(prep.bounds) > 2)
     assert _counts() == {"k1_parse": before["k1_parse"] + 1,
-                         "k2_resolve": before["k2_resolve"] + deep}
+                         "k2_resolve": before["k2_resolve"] + deep,
+                         "reads": before["reads"] + 1}
     psucc, perr = D2.resolve_copies_plain(plain, prep.order, prep.bounds,
                                           prep.offsets, prep.bstart)
     assert not perr.any()

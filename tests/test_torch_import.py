@@ -44,7 +44,8 @@ for name in ("algo.bfs", "algo.centralities", "algo.components", "algo.device",
              "probes.fetch", "probes.onehot", "probes.loops", "probes.timing5",
              "probes.bisect4", "probes.bisect3", "probes.perf", "probes.forms",
              "probes.caps", "probes.bisect", "probes.bisect2", "probes.v6",
-             "probes.v6b", "formats.bvgraph_encode", "kernels.encode"):
+             "probes.v6b", "formats.bvgraph_encode", "kernels.encode",
+             "timing"):
     assert "webgraph_tpu_torch." + name in names, name
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -301,7 +301,8 @@ def test_speed_test_sequential_runs_with_its_defaults(tmp_path):
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_successors_batch_on_card(name, tmp_path, cuda):
     """``k1_parse`` once and ``k2_resolve`` once (none when the closure is
-    all at depth 0) through K1's wrapper, none through K2's; exact."""
+    all at depth 0) through K1's wrapper, none through K2's, and one read
+    from the card, the error check; exact."""
     bv = _stored(name, tmp_path)
     nodes = _nodes(name, bv, seed=list(GRAPHS).index(name))
     qp = QueryPlanner(bv, cuda)
@@ -312,7 +313,8 @@ def test_successors_batch_on_card(name, tmp_path, cuda):
     after, k2_after = _launches()
     assert after == {"k1_parse": k1["k1_parse"] + 1,
                      "k2_resolve": k1["k2_resolve"] + int(
-                         plan.bounds.size > 2)}
+                         plan.bounds.size > 2),
+                     "reads": k1["reads"] + 1}
     assert k2_after == k2 and out.device.type == "cuda"
     _assert_lists(bv, nodes, out, counts)
 

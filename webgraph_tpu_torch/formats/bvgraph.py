@@ -51,6 +51,7 @@ from webgraph_tpu_torch.graph.properties import load_properties, store_propertie
 from webgraph_tpu_torch.kernels import decode as K2
 from webgraph_tpu_torch.kernels import decode2 as D2
 from webgraph_tpu_torch.kernels.plan import scan_structure
+from webgraph_tpu_torch.timing import span
 
 GRAPH_EXTENSION = ".graph"
 OFFSETS_EXTENSION = ".offsets"
@@ -1155,7 +1156,9 @@ def prepare(g, device="cuda"):
     ``decode.LevelPrepared`` (K2): both the depth plan of
     ``kernels/levels.py``, K1's with the records of at least
     ``decode2.LONG_ARCS`` arcs listed for a block each.  Raises
-    NotImplementedError for graphs neither kernel decodes."""
+    NotImplementedError for graphs neither kernel decodes.  Host spans
+    (``timing.span``): ``prepare``, holding ``prepare.scan``,
+    ``prepare.plan`` and ``prepare.upload``."""
     if not K2.supports(g):
         s = g.settings
         raise NotImplementedError(
@@ -1164,10 +1167,12 @@ def prepare(g, device="cuda"):
             f"gamma, delta, zeta and unary codes with window <= 7.  Its host "
             f"path is webgraph_tpu_torch.formats.bvgraph_np.decode_to_csr; "
             f"an all-codings device decoder is ROADMAP A.11")
-    scan = scan_structure(g)
-    if not D2.supports(g, scan):
-        return K2.prepare(g, device, scan=scan)
-    return D2.prepare(g, device, scan=scan)
+    with span("prepare"):
+        with span("prepare.scan"):
+            scan = scan_structure(g)
+        if not D2.supports(g, scan):
+            return K2.prepare(g, device, scan=scan)
+        return D2.prepare(g, device, scan=scan)
 
 
 def decode_prepared(prep) -> tuple[torch.Tensor, torch.Tensor]:

@@ -31,6 +31,7 @@ import torch
 from webgraph_tpu_torch.kernels import encode as K
 from webgraph_tpu_torch.kernels.encode import (make_len_fn,  # noqa: F401
                                                make_pat_fn)
+from webgraph_tpu_torch.timing import span
 
 
 def skey_of(s):
@@ -162,46 +163,65 @@ def encode_device(offsets, succ, settings, shard_start: int = 0,
     launches on a CUDA device (``enc_costs``, ``enc_select``, ``enc_emit``)
     and two host reads (:attr:`encode_device.reads`): the two totals, then
     the streams and stats.  Raises ValueError for a graph without nodes or
-    arcs and RuntimeError if a record is not the length its cost planned."""
-    dev = torch.device(device)
-    off = _tensor(offsets, torch.int64, dev)
-    sc = _tensor(succ, torch.int32, dev)
-    n, m = off.numel() - 1, sc.numel()
-    if n < 1 or m == 0:
-        raise ValueError("device encoder requires a non-empty graph")
-    skey = skey_of(settings)
-    off_c, zeta_k = settings.offset_coding, settings.zeta_k
-    costs, valid = compute_costs(off, sc, None, skey, shard_start)
-    refs, depths = select_references(costs, valid, skey)
-    node_bits = node_bits_of(off, costs, refs, skey)
-    starts = _starts(node_bits)
-    opos = K.offset_positions(node_bits, off_c, zeta_k)
-    tb, tob, m_off = torch.stack([starts[-1], opos[-1], off[-1]]).tolist()
-    encode_device.reads += 1
-    if m_off != m:
-        raise ValueError(f"offsets end at {m_off}, but succ holds {m} arcs")
-    wg, wo = (tb + 31) // 32 + 2, (tob + 31) // 32 + 2
-    pad = (wg + wo) % 2  # the stats start on an 8-byte boundary
-    buf = torch.zeros(wg + wo + pad + 2 * (K.STATS + 1), dtype=torch.int32,
-                      device=dev)
-    stats = buf[wg + wo + pad:].view(torch.int64)
-    K.enc_emit(off, sc, refs, depths, starts, skey, stats,
-               words=buf[:wg], opos=opos, owords=buf[wg:wg + wo],
-               offset_coding=off_c)
-    host = buf.cpu().numpy()
-    encode_device.reads += 1
-    st = host[wg + wo + pad:].view(np.int64)
-    _raise_on(int(st[K.ERR]), "encode_device")
-    names = ("bits_outdegrees", "bits_references", "bits_blocks",
-             "bits_intervals", "bits_residuals", "copied_arcs",
-             "intervalised_arcs", "residual_arcs", "tot_ref", "tot_dist")
-    stats_out = {k: int(v) for k, v in zip(names, st[:K.NSTATS])}
-    stats_out.update(
-        tot_links=m, node_count=n,
-        successor_gap_stats=st[K.NSTATS:K.NSTATS + K.NBINS].copy(),
-        residual_gap_stats=st[K.NSTATS + K.NBINS:K.STATS].copy())
-    return (_bytes(host[:wg], tb), tb, _bytes(host[wg:wg + wo], tob), tob,
-            stats_out)
+    arcs and RuntimeError if a record is not the length its cost planned.
+
+    Host spans (``timing.span``): ``encode``, holding ``encode.costs``,
+    ``encode.select``, ``encode.layout`` (the record lengths, bit starts
+    and ``.offsets`` positions), ``encode.read_totals``, ``encode.emit``,
+    ``encode.read_streams`` (both reads count ``d2h_bytes``) and
+    ``encode.unpack`` (the bytes and stats)."""
+    with span("encode"):
+        dev = torch.device(device)
+        off = _tensor(offsets, torch.int64, dev)
+        sc = _tensor(succ, torch.int32, dev)
+        n, m = off.numel() - 1, sc.numel()
+        if n < 1 or m == 0:
+            raise ValueError("device encoder requires a non-empty graph")
+        skey = skey_of(settings)
+        off_c, zeta_k = settings.offset_coding, settings.zeta_k
+        with span("encode.costs"):
+            costs, valid = compute_costs(off, sc, None, skey, shard_start)
+        with span("encode.select"):
+            refs, depths = select_references(costs, valid, skey)
+        with span("encode.layout"):
+            node_bits = node_bits_of(off, costs, refs, skey)
+            starts = _starts(node_bits)
+            opos = K.offset_positions(node_bits, off_c, zeta_k)
+            totals = torch.stack([starts[-1], opos[-1], off[-1]])
+        with span("encode.read_totals") as s:
+            s.count(d2h_bytes=totals.nbytes)
+            tb, tob, m_off = totals.tolist()
+        encode_device.reads += 1
+        if m_off != m:
+            raise ValueError(f"offsets end at {m_off}, but succ holds {m} "
+                             f"arcs")
+        with span("encode.emit"):
+            wg, wo = (tb + 31) // 32 + 2, (tob + 31) // 32 + 2
+            pad = (wg + wo) % 2  # the stats start on an 8-byte boundary
+            buf = torch.zeros(wg + wo + pad + 2 * (K.STATS + 1),
+                              dtype=torch.int32, device=dev)
+            stats = buf[wg + wo + pad:].view(torch.int64)
+            K.enc_emit(off, sc, refs, depths, starts, skey, stats,
+                       words=buf[:wg], opos=opos, owords=buf[wg:wg + wo],
+                       offset_coding=off_c)
+        with span("encode.read_streams") as s:
+            s.count(d2h_bytes=buf.nbytes)
+            host = buf.cpu().numpy()
+        encode_device.reads += 1
+        with span("encode.unpack"):
+            st = host[wg + wo + pad:].view(np.int64)
+            _raise_on(int(st[K.ERR]), "encode_device")
+            names = ("bits_outdegrees", "bits_references", "bits_blocks",
+                     "bits_intervals", "bits_residuals", "copied_arcs",
+                     "intervalised_arcs", "residual_arcs", "tot_ref",
+                     "tot_dist")
+            stats_out = {k: int(v) for k, v in zip(names, st[:K.NSTATS])}
+            stats_out.update(
+                tot_links=m, node_count=n,
+                successor_gap_stats=st[K.NSTATS:K.NSTATS + K.NBINS].copy(),
+                residual_gap_stats=st[K.NSTATS + K.NBINS:K.STATS].copy())
+            return (_bytes(host[:wg], tb), tb, _bytes(host[wg:wg + wo], tob),
+                    tob, stats_out)
 
 
 encode_device.reads = 0  # host reads: two an encode

@@ -37,6 +37,7 @@ from webgraph_tpu_torch.kernels.levels import (  # noqa: F401  (K2's names)
 from webgraph_tpu_torch.kernels.levels import decode_plain as \
     decode_levels_plain
 from webgraph_tpu_torch.kernels.plan import scan_structure
+from webgraph_tpu_torch.timing import span
 
 
 def supports(g) -> bool:
@@ -62,8 +63,11 @@ def prepare(g, device="cuda", *, scan=None) -> LevelPrepared:
         raise NotImplementedError(
             f"K2 does not decode this graph (codings "
             f"{g.settings.flags_string()!r}, window {g.settings.window_size})")
-    plan = plan_levels(g, scan if scan is not None else scan_structure(g))
-    return LevelPrepared(**planned_fields(g, device, plan))
+    with span("prepare.plan"):
+        plan = plan_levels(g, scan if scan is not None
+                           else scan_structure(g))
+    with span("prepare.upload"):
+        return LevelPrepared(**planned_fields(g, device, plan))
 
 
 def decode_prepared(prep: LevelPrepared):

@@ -42,6 +42,7 @@ from webgraph_tpu_torch.kernels.levels import (  # noqa: F401  (K1's names)
 from webgraph_tpu_torch.kernels.levels import decode_plain as \
     decode_records_plain
 from webgraph_tpu_torch.kernels.plan import scan_structure
+from webgraph_tpu_torch.timing import span
 
 MAX_REACH = 256  # longest reference reach (nodes) K1 takes
 # records of at least this many arcs are parsed by a block each
@@ -109,11 +110,13 @@ def prepare(g, device="cuda", *, scan=None,
             f"reach past {MAX_REACH})")
     if long_arcs < 1:
         raise ValueError("long_arcs must be at least 1")
-    plan = plan_levels(g, scan if scan is not None else scan_structure(g),
-                       long_arcs)
-    fields = planned_fields(g, device, plan)
-    return Prepared(**fields, long=plan.long.to(fields["device"]),
-                    long_arcs=long_arcs)
+    with span("prepare.plan"):
+        plan = plan_levels(g, scan if scan is not None
+                           else scan_structure(g), long_arcs)
+    with span("prepare.upload"):
+        fields = planned_fields(g, device, plan)
+        long = plan.long.to(fields["device"])
+    return Prepared(**fields, long=long, long_arcs=long_arcs)
 
 
 def decode_prepared(prep: Prepared):
@@ -184,39 +187,61 @@ def decode_records(words, bo, order, bounds, offsets, skey, bstart, long, *,
     ``kernels/query2.py``); ``bo``, ``offsets`` and ``bstart`` still cover
     the whole graph.
 
-    CPU tensors take :func:`decode_records_plain`; CUDA tensors launch
-    ``k1_parse`` and then, when a node has depth >= 1, ``k2_resolve``
-    (``decode.launch_resolve``), and are checked once after the launches.
+    CPU tensors take the steps of :func:`decode_records_plain`
+    (:func:`parse_records_plain`, :func:`resolve_copies_plain`); CUDA
+    tensors launch ``k1_parse`` and then, when a node has depth >= 1,
+    ``k2_resolve`` (``decode.launch_resolve``), and are checked once
+    after the launches.
     Nothing is read back from the card before the launches when the sizes
-    are given.  ``decode_records.counts`` adds up each kernel's launches."""
+    are given.  ``decode_records.counts`` adds up each kernel's launches
+    and, under ``reads``, the reads from the card (one a CUDA call that
+    decodes a record: the error check).
+
+    Host spans (``timing.span``): ``decode``, holding ``decode.check``,
+    ``decode.alloc`` (CUDA), ``decode.k1_parse``, ``decode.k2_resolve``
+    and ``decode.wait`` (the error check)."""
     dev = words.device
-    bounds = np.ascontiguousarray(bounds, dtype=np.int64)
-    m, nblocks = host_sizes(offsets, bstart, m, nblocks)
-    if dev.type == "cpu":
-        succ, err = decode_records_plain(words, bo, order, bounds, offsets,
-                                         skey, bstart, m=m, nblocks=nblocks)
-        check_errors(err, order)
-        return succ
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_records: unsupported device {dev}")
-    check_inputs("decode_records", words, bo, order, bounds, offsets, skey,
-                 bstart, m=m, nblocks=nblocks)
-    _check_long("decode_records", long, order)
-    succ = torch.empty(m, dtype=torch.int32, device=dev)
-    if order.numel() == 0:
+    with span("decode"):
+        with span("decode.check"):
+            bounds = np.ascontiguousarray(bounds, dtype=np.int64)
+            m, nblocks = host_sizes(offsets, bstart, m, nblocks)
+            if dev.type == "cuda":
+                check_inputs("decode_records", words, bo, order, bounds,
+                             offsets, skey, bstart, m=m, nblocks=nblocks)
+                _check_long("decode_records", long, order)
+        if dev.type == "cpu":
+            with span("decode.k1_parse"):
+                parsed = parse_records_plain(words, bo, order, bounds,
+                                             offsets, skey, bstart, m=m,
+                                             nblocks=nblocks)
+            with span("decode.k2_resolve"):
+                succ, err = resolve_copies_plain(parsed, order, bounds,
+                                                 offsets, bstart, m=m)
+            with span("decode.wait"):
+                check_errors(err, order)
+            return succ
+        with span("decode.alloc"):
+            succ = torch.empty(m, dtype=torch.int32, device=dev)
+            if order.numel() == 0:
+                return succ
+            ext = torch.empty_like(succ)
+            bend = torch.empty(nblocks, dtype=torch.int32, device=dev)
+        with span("decode.k1_parse"):
+            err, node, parses = _parse(words, bo, order, bounds, offsets,
+                                       skey, bstart, long, ext, bend, succ)
+        decode_records.counts["k1_parse"] += parses
+        with span("decode.k2_resolve"):
+            decode_records.counts["k2_resolve"] += K2.launch_resolve(
+                offsets, order, bounds, bstart, bend, ext, node, succ, err)
+        decode_records.counts["reads"] += 1
+        with span("decode.wait"):
+            check_errors(err, order)
         return succ
-    ext = torch.empty_like(succ)
-    bend = torch.empty(nblocks, dtype=torch.int32, device=dev)
-    err, node, parses = _parse(words, bo, order, bounds, offsets, skey,
-                               bstart, long, ext, bend, succ)
-    decode_records.counts["k1_parse"] += parses
-    decode_records.counts["k2_resolve"] += K2.launch_resolve(
-        offsets, order, bounds, bstart, bend, ext, node, succ, err)
-    check_errors(err, order)
-    return succ
 
 
-decode_records.counts = {"k1_parse": 0, "k2_resolve": 0}
+decode_records.counts = {"k1_parse": 0, "k2_resolve": 0, "reads": 0}
 
 
 def parse_records(words, bo, order, bounds, offsets, skey, bstart, long, *,

@@ -23,6 +23,12 @@ zero-padded ``(q, maxd)`` block, as the reference returns them.  The plan
 is made on the host in NumPy; a batch reads from the card once, at the
 decode's error check.  CPU tensors take the plain versions of both
 kernels; CUDA tensors take the kernels, or raise.
+
+Host spans (``timing.span``): the planner's set-up is ``prepare``
+(``prepare.scan``, ``prepare.upload``); a batch is ``query``, holding
+``query.plan`` (counts ``records``, the closure's size, and ``levels``),
+``query.upload`` (each copy to the device, count ``h2d_bytes``), the
+decode's ``decode`` and ``query.gather``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from webgraph_tpu_torch.kernels import decode2 as D2
 from webgraph_tpu_torch.kernels.levels import (csr_starts, graph_fields,
                                                level_order)
 from webgraph_tpu_torch.kernels.plan import scan_structure
+from webgraph_tpu_torch.timing import span
 
 
 @dataclass
@@ -63,14 +70,18 @@ class QueryPlanner:
                 f"{g.settings.flags_string()!r}, window "
                 f"{g.settings.window_size}): k1_parse reads gamma, delta, "
                 f"zeta and unary codes with window <= 7")
-        scan = scan_structure(g) if scan is None else scan
-        n = g.num_nodes()
-        self.n = n
-        ref = scan.ref.astype(np.int64)
-        self.parent = np.where(ref > 0, np.arange(n) - ref, -1)
-        self.depth = scan.depth.astype(np.int64)
-        self.d = scan.d.astype(np.int64)
-        f = graph_fields(g, device, *csr_starts(scan))
+        with span("prepare"):
+            if scan is None:
+                with span("prepare.scan"):
+                    scan = scan_structure(g)
+            n = g.num_nodes()
+            self.n = n
+            ref = scan.ref.astype(np.int64)
+            self.parent = np.where(ref > 0, np.arange(n) - ref, -1)
+            self.depth = scan.depth.astype(np.int64)
+            self.d = scan.d.astype(np.int64)
+            with span("prepare.upload"):
+                f = graph_fields(g, device, *csr_starts(scan))
         self.device, self.words, self.bo = f["device"], f["words"], f["bo"]
         self.offsets, self.bstart = f["offsets"], f["bstart"]
         self.skey, self.m, self.nblocks = f["skey"], f["m"], f["nblocks"]
@@ -120,9 +131,8 @@ class QueryPlanner:
         """Decode the closure of ``plan``: the graph's m CSR slots (int32,
         on the planner's device), written at the closure's lists only.
         Raises if a node reports an error."""
-        dev = self.device
-        order = torch.from_numpy(plan.order.astype(np.int32)).to(dev)
-        long = torch.from_numpy(plan.long.astype(np.int32)).to(dev)
+        order = self._upload(plan.order, np.int32)
+        long = self._upload(plan.long, np.int32)
         return D2.decode_records(self.words, self.bo, order, plan.bounds,
                                  self.offsets, self.skey, self.bstart, long,
                                  m=self.m, nblocks=self.nblocks)
@@ -133,24 +143,36 @@ class QueryPlanner:
         int64[q])`` on the planner's device, ``out[i, :counts[i]]`` the
         list of ``nodes[i]``, zero-padded, ``maxd = max(counts)`` and at
         least 1."""
-        plan = self.plan(nodes)
-        dev = self.device
-        q = plan.nodes.size
-        maxd = int(plan.counts.max(initial=1))
-        counts = torch.from_numpy(plan.counts).to(dev)
-        out = torch.zeros((q, maxd), dtype=torch.int32, device=dev)
-        if q == 0:
+        with span("query"):
+            with span("query.plan") as s:
+                plan = self.plan(nodes)
+                s.count(records=plan.order.size,
+                        levels=plan.bounds.size - 1)
+            dev = self.device
+            q = plan.nodes.size
+            maxd = int(plan.counts.max(initial=1))
+            counts = self._upload(plan.counts, np.int64)
+            out = torch.zeros((q, maxd), dtype=torch.int32, device=dev)
+            if q == 0:
+                return out, counts
+            succ = self.decode(plan)
+            with span("query.gather"):
+                # slot j of query i: succ[offsets[x_i] + j] -> out[i, j]
+                total = int(plan.counts.sum())
+                seg = torch.repeat_interleave(torch.arange(q, device=dev),
+                                              counts, output_size=total)
+                j = torch.arange(total, device=dev) - (
+                    torch.cumsum(counts, 0) - counts)[seg]
+                start = self.offsets[self._upload(plan.nodes, np.int64)]
+                out.view(-1)[seg * maxd + j] = succ[start[seg] + j]
             return out, counts
-        succ = self.decode(plan)
-        # slot j of query i: succ[offsets[x_i] + j] -> out[i, j]
-        total = int(plan.counts.sum())
-        seg = torch.repeat_interleave(torch.arange(q, device=dev), counts,
-                                      output_size=total)
-        j = torch.arange(total, device=dev) - (torch.cumsum(counts, 0)
-                                               - counts)[seg]
-        start = self.offsets[torch.from_numpy(plan.nodes).to(dev)]
-        out.view(-1)[seg * maxd + j] = succ[start[seg] + j]
-        return out, counts
+
+    def _upload(self, a: np.ndarray, dtype) -> torch.Tensor:
+        """``a`` as ``dtype`` on the planner's device."""
+        with span("query.upload") as s:
+            a = a.astype(dtype, copy=False)
+            s.count(h2d_bytes=a.nbytes)
+            return torch.from_numpy(a).to(self.device)
 
     def adjacency(self, src, dst) -> torch.Tensor:
         """Whether ``(src[i], dst[i])`` is an arc, for each ``i``: a bool
