@@ -2402,17 +2402,29 @@ ENC_NOTES = {
     "enc_costs": "no pallas_call: takes the place of the XLA program "
                  "compute_costs (:449); a thread a (node, shift) merge",
     "enc_select": "no pallas_call: takes the place of the XLA scan "
-                  "select_references (:487); one thread runs the chain, "
-                  "its bound the larger of bytes and operations, the chain "
-                  "in chain_ms",
+                  "select_references (:487); chunks of 128 nodes a thread "
+                  "each in one cooperative launch, each repaired from its "
+                  "predecessor's depths; its bound bytes, its chains' "
+                  "serial steps in chain_ms, its counts in counts",
     "enc_emit": "no pallas_call: takes the place of the XLA programs "
                 "_chosen_structure (:520), emit_graph (:651) and "
                 "emit_offsets (:795); a thread a record"}
 ENC_PLAIN_SELECT_S = 30.0  # the host selection loop runs at size under this
 ENC_PLAIN_SELECT_NODES = 20_000  # else on these first nodes
-# the serial chain of enc_select: a compare, a select and an add a node,
-# 4 cycles each at the H100 SXM's 1,980 MHz boost clock
+# a serial step of enc_select's chains: a compare, a select and an add a
+# node, 4 cycles each at the H100 SXM's 1,980 MHz boost clock
 ENC_CHAIN_OPS, ENC_OP_CYCLES, ENC_CLOCK_HZ = 3, 4, 1.98e9
+
+
+def _chain_ms(counts):
+    """The serial steps of ``enc_select``'s chains in ms: a chunk's run and
+    one repair of at most a chunk a round, then the walk, from the call's
+    counts (rounds, nodes re-run, nodes walked)."""
+    from webgraph_tpu_torch.kernels import encode as KE
+
+    rounds, _, walked = counts
+    steps = (1 + rounds) * KE.SELECT_CHUNK + walked
+    return steps * ENC_CHAIN_OPS * ENC_OP_CYCLES / ENC_CLOCK_HZ * 1e3
 
 
 def _stored(base):
@@ -2459,8 +2471,12 @@ def _enc_work(off, n, m, w, tb, tob):
 def phase_encode_bytes(label, base, csr, settings):
     """A cell's CSR on the card (its decode's output) encoded on the card,
     byte for byte the cell's stored ``.graph`` and ``.offsets`` (the
-    port's native store); returns the encode's CUDA-event ms."""
+    port's native store), then ``enc_select`` alone on its costs (CUDA
+    events, median of 3) with its counts; returns the encode's CUDA-event
+    ms."""
     from webgraph_tpu_torch.formats import bvgraph_encode as E
+    from webgraph_tpu_torch.kernels import encode as KE
+    from webgraph_tpu_torch.timing import cuda_ms
 
     off, succ = csr
     _enc_reset()
@@ -2471,12 +2487,19 @@ def phase_encode_bytes(label, base, csr, settings):
           f"{label} encode: bytes differ from the stored graph")
     check(set(launches.values()) == {1} and reads == 2,
           f"{label} encode: launches {launches}, reads {reads}")
+    costs, valid = KE.enc_costs(off, succ, E.skey_of(settings))
+    select_ms = cuda_ms(lambda: KE.enc_select(
+        costs, valid, settings.max_ref_count), 3)
+    counts = KE.enc_select.last_counts.tolist()
     m = succ.numel()
     print(f"{label} encode: n {off.numel() - 1} m {m}, window "
           f"{settings.window_size} maxref {settings.max_ref_count} minint "
           f"{settings.min_interval_length}: bytes equal the stored graph; "
           f"{ms:.4f} ms (one call, CUDA events) = {m / ms / 1e3:.2f} "
-          f"Medges/s, launches {launches}, reads {reads}")
+          f"Medges/s, launches {launches}, reads {reads}; enc_select "
+          f"{select_ms:.4f} ms (CUDA events, median of 3), rounds "
+          f"{counts[0]}, nodes re-run {counts[1]}, walked {counts[2]}, "
+          f"chains {_chain_ms(counts):.4f} ms")
     return ms
 
 
@@ -2555,6 +2578,7 @@ def phase_encode(bv, label, card, csr, base):
           f"{label} encode: enc_costs differs from its plain version")
     del pc, pv
     refs, depths = KE.enc_select(costs, valid, s.max_ref_count)
+    select_counts = KE.enc_select.last_counts.tolist()
     cut = ENC_PLAIN_SELECT_NODES
     t0 = time.perf_counter()
     KE.enc_select_plain(costs[:cut], valid[:cut], s.max_ref_count)
@@ -2626,7 +2650,7 @@ def phase_encode(bv, label, card, csr, base):
     del hoff, hsucc
     work = _enc_work(off, n, m, w, gbits, obits)
     bounds = {k: _bound(*v) for k, v in work.items()}
-    chain_ms = n * ENC_CHAIN_OPS * ENC_OP_CYCLES / ENC_CLOCK_HZ * 1e3
+    chain_ms = _chain_ms(select_counts)
     plain = {"enc_costs": costs_plain, "enc_select": select_plain,
              "enc_emit": emit_plain}
 
@@ -2658,7 +2682,8 @@ def phase_encode(bv, label, card, csr, base):
               f"bound {bounds[k][0]:.4f}, {bounds[k][1]}; plain "
               f"{plain[k]:.1f}; {regs.get(k)} registers)"
               for k in ENC_REPLACES)
-          + f"; enc_select's chain {chain_ms:.4f} ms; native host encoder "
+          + f"; enc_select's chains {chain_ms:.4f} ms (rounds, nodes "
+          f"re-run, walked: {select_counts}); native host encoder "
           f"{native_ms:.1f} ms; the transpose's encode {transpose_ms:.4f} "
           f"ms, bytes equal; card {card}")
     rows_out = {}
@@ -2667,7 +2692,8 @@ def phase_encode(bv, label, card, csr, base):
                        "ms": kms[k], "plain_ms": plain[k],
                        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                        "device_ms": dev_ms[k], "hubless_ms": hubless_ms[k]}
-    rows_out["enc_select"].update(chain_ms=chain_ms, plain_nodes=rows)
+    rows_out["enc_select"].update(chain_ms=chain_ms, plain_nodes=rows,
+                                  counts=select_counts)
     rows_out["encode"] = {
         "ms": encode_ms, "medges_s": m / encode_ms / 1e3, "reads": reads,
         "launches": sum(launches.values()),
@@ -2807,7 +2833,8 @@ def main():
             extra["encode"] = enc["encode"]
         if name == "enc_select":
             extra.update({k: enc[name][k] for k in ("chain_ms",
-                                                    "plain_nodes")})
+                                                    "plain_nodes",
+                                                    "counts")})
         if name == "enc_emit":
             extra["also_replaces"] = [
                 "webgraph_tpu/formats/bvgraph_jax_encode.py:795",

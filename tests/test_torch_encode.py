@@ -17,12 +17,18 @@ tests/test_bvgraph_jax_encode.py:
 * config 4's composition: the device transpose, the Gray-code map (host
   keys), then the encode, against the host pipeline.
 
+``enc_select``'s chunked selection is modelled in NumPy
+(:func:`select_model`) and held to ``enc_select_plain`` at chunk lengths
+1, 3, 8 and 128 on random tables, its counts on a chain through every
+chunk and on a table whose guesses hold.
+
 Card twins (``gpu``) hold each kernel to its plain version and
 ``encode_device(..., device="cuda")`` to the host store on the same
 sweep, a graph with a hub of 2,500 arcs, config 3's graph at 2,000 nodes
 with maxref 2^31-1 (a long chain) and a 12-node window (the ring in
-shared memory); they skip without a card.  The JAX package:
-tests/test_torch_encode_ref.py."""
+shared memory), and ``enc_select`` to its plain version and its counts to
+the model's on the random tables and the two made ones; they skip
+without a card.  The JAX package: tests/test_torch_encode_ref.py."""
 
 import os
 
@@ -30,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from webgraph_tpu_torch import timing
 from webgraph_tpu_torch.bits import codes as C
 from webgraph_tpu_torch.formats import bvgraph_encode as E
 from webgraph_tpu_torch.formats.bvgraph import (_DEFAULT_CODINGS, BVGraph,
@@ -242,15 +249,22 @@ def test_entry_points_default_to_the_card(entry):
 
 def test_cpu_tensors_launch_nothing_and_read_twice():
     """The plain versions run for CPU tensors: no kernel launch is
-    counted; an encode reads its totals and its output once each."""
+    counted; an encode reads its totals and its output once each, the
+    first read also giving ``enc_select``'s three counts (zeros: the host
+    loop runs no rounds)."""
     g = MutableGraph.erdos_renyi(40, 0.1, seed=2)
     launches = [K.enc_costs.launches, K.enc_select.launches,
                 K.enc_emit.launches]
     reads = E.encode_device.reads
-    E.encode_device(*g.to_csr(), BVGraphSettings(), device="cpu")
+    with timing.recording() as spans:
+        E.encode_device(*g.to_csr(), BVGraphSettings(), device="cpu")
     assert [K.enc_costs.launches, K.enc_select.launches,
             K.enc_emit.launches] == launches
     assert E.encode_device.reads == reads + 2
+    (totals,) = [s for s in spans if s.name == "encode.read_totals"]
+    assert totals.counts == {"d2h_bytes": 48, "select_rounds": 0,
+                             "select_rerun_nodes": 0,
+                             "select_serial_nodes": 0}
     off, succ = (torch.as_tensor(np.asarray(a)) for a in g.to_csr())
     with pytest.raises(ValueError, match="unsupported device"):
         K.enc_costs(off.long().to("meta"), succ.int().to("meta"),
@@ -277,6 +291,189 @@ def test_plan_sizes_and_node_bits():
     owords = E.emit_offsets(starts[1:] - starts[:-1], s.offset_coding,
                             s.zeta_k)
     assert owords.dtype == torch.int32 and words.dtype == torch.int32
+
+
+# ----------------------------------------------------------------------
+# the chunked selection of csrc/encode.cu's enc_select, in NumPy
+# ----------------------------------------------------------------------
+
+
+def select_model(costs, valid, maxref, chunk, rounds=K.SELECT_ROUNDS,
+                 gain=K.SELECT_GAIN):
+    """``enc_select``'s three phases in NumPy, ``chunk`` nodes a chunk:
+    ``(refs, depths, (rounds run, nodes re-run, nodes walked))``.
+
+    1. Each chunk runs from a guessed ring of zero depths.
+    2. A round snapshots every chunk's incoming ring (the depths of the w
+       nodes before it).  A chunk whose snapshot differs from the ring it
+       last ran from re-runs from the snapshot, comparing each new depth
+       with the stored one, and stops once the last w agree (a position
+       before the chunk agrees where the two rings do).  Rounds go on
+       while some chunk changed a depth that a later chunk's ring holds,
+       at most ``rounds``, and from the third on only while the round
+       before cut the chunks still changing by ``gain`` or more.
+    3. If one still did, a walk from the first chunk whose ring changed,
+       chunk after chunk, re-running as a repair each chunk whose ring
+       differs from the one it last ran from."""
+    rows = np.where(np.asarray(valid), np.asarray(costs), -1)
+    n, cbs = rows.shape
+    w = cbs - 1
+    refs = np.zeros(n, np.int32)
+    dep = np.zeros(n, np.int32)
+    nch = -(-n // chunk)
+
+    def ring_of(c):
+        return np.array([dep[p] if p >= 0 else 0
+                         for p in range(c * chunk - w, c * chunk)], np.int32)
+
+    def run(lo, hi, ring, eq=None):
+        """Nodes lo..hi - 1 from ``ring``, the depths of the w nodes
+        before lo; with ``eq`` (the agreements so far) a repair:
+        (nodes run, whether a depth of the last w nodes changed)."""
+        ran, tail = 0, False
+        for x in range(lo, hi):
+            if eq is not None and eq >= w:
+                break
+            best, br, bd = -1, 0, -1
+            for r in range(cbs):
+                cr = rows[x, r]
+                if cr >= 0 and (best < 0 or cr < best):
+                    p = x - r
+                    dr = dep[p] if p >= lo else ring[p - lo + w]
+                    if r == 0 or dr < maxref:
+                        best, br, bd = cr, r, dr if r else -1
+            if eq is not None:
+                same = bd + 1 == dep[x]
+                eq = eq + 1 if same else 0
+                tail |= not same and x >= hi - w
+            refs[x], dep[x] = br, bd + 1
+            ran += 1
+        return ran, tail
+
+    def repair(c, s):
+        eq = 0
+        while s[w - 1 - eq] == last[c][w - 1 - eq]:
+            eq += 1
+        last[c] = s
+        return run(c * chunk, min(n, (c + 1) * chunk), s, eq)
+
+    for c in range(nch):
+        run(c * chunk, min(n, (c + 1) * chunk), np.zeros(w, np.int32))
+    last = np.zeros((nch, w), np.int32)  # the ring each chunk last ran from
+    nrounds = rerun = walked = 0
+    changed, before = [], None
+    for k in range(1, rounds + 1 if nch > 1 else 1):
+        if k > 2 and before - len(changed) < gain:
+            break
+        before, nrounds = len(changed), k
+        snaps = [ring_of(c) for c in range(nch)]
+        changed = []
+        for c in range(1, nch):
+            if not np.array_equal(snaps[c], last[c]):
+                ran, tail = repair(c, snaps[c])
+                rerun += ran
+                if tail and c + 1 < nch:
+                    changed.append(c)
+        if not changed:
+            break
+    for c in range(min(changed) + 1, nch) if changed else ():
+        s = ring_of(c)
+        if not np.array_equal(s, last[c]):
+            walked += repair(c, s)[0]
+    return refs, dep, (nrounds, rerun, walked)
+
+
+def _random_table(n, w, seed):
+    """A cost table with ~30% of its slots no candidates and costs in
+    0..3, so that ties are frequent."""
+    rng = np.random.default_rng(seed)
+    costs = rng.integers(0, 4, size=(n, w + 1), dtype=np.int32)
+    valid = rng.random((n, w + 1)) >= 0.3
+    return torch.from_numpy(costs), torch.from_numpy(valid)
+
+
+def _chain_table(n, w):
+    """Every node's cheapest candidate is the node before it: with an
+    unbounded maxref each depth is its node's index, so every repair runs
+    through its chunk."""
+    costs = np.full((n, w + 1), 9, np.int32)
+    costs[:, 1] = 1
+    valid = np.arange(w + 1)[None, :] <= np.arange(n)[:, None]
+    return torch.from_numpy(costs), torch.from_numpy(valid)
+
+
+def _chains_table(n, w, chunk):
+    """Chains of three and a half chunks, one starting in every fourth
+    chunk, no reference elsewhere: the second round settles one chunk of
+    each (ten, over ``SELECT_GAIN``), so a third runs and settles them."""
+    costs, valid = _chain_table(n, w)
+    x = np.arange(n)
+    costs[(x % (4 * chunk)) >= 7 * chunk // 2, 1] = 9
+    return costs, valid
+
+
+def _gap_table(n, w, chunk):
+    """Two chains of fifteen chunks, from the start and from the middle,
+    no reference between them: the walk re-runs the first, passes the
+    chunks between as they stand, and re-runs the second."""
+    costs, valid = _chain_table(n, w)
+    x = np.arange(n) % (n // 2)
+    costs[x >= 15 * chunk, 1] = 9
+    return costs, valid
+
+
+def _flat_table(n, w):
+    """Random costs, but no node's w last nodes has a reference: each
+    chunk's guessed ring of zeros holds."""
+    costs, valid = _random_table(n, w, 5)
+    valid[:, 1:] = False
+    return costs, valid
+
+
+SELECT_CASES = [(w, mr) for w in (0, 1, 7, 12) for mr in (0, 1, 3, MAXREF_INF)]
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8, 128])
+@pytest.mark.parametrize("w,maxref", SELECT_CASES)
+def test_select_model_matches_plain(chunk, w, maxref):
+    """The model's refs and depths equal ``enc_select_plain``'s at every
+    chunk length, the nodes before a chunk included in its ring where the
+    chunk is shorter than the window."""
+    for n, seed in ((1, 0), (chunk + 1, 1), (600, 2)):
+        costs, valid = _random_table(n, w, seed)
+        refs, depths, _ = select_model(costs, valid, maxref, chunk)
+        pr, pd = K.enc_select_plain(costs, valid, maxref)
+        assert np.array_equal(refs, pr.numpy()), (n, chunk)
+        assert np.array_equal(depths, pd.numpy()), (n, chunk)
+
+
+@pytest.mark.parametrize("chunk", [3, 8, 128])
+def test_select_model_counts(chunk):
+    """A chain through every chunk runs two rounds (the second settles
+    one chunk) and walks the rest; ten chains of three and a half chunks
+    settle in three rounds or more; two chains with chunks between them
+    walk each chain and none between; a table whose guesses hold re-runs
+    nothing."""
+    n = 40 * chunk + 5
+    costs, valid = _chain_table(n, 7)
+    refs, depths, (rounds, rerun, walked) = select_model(
+        costs, valid, MAXREF_INF, chunk)
+    assert np.array_equal(depths, np.arange(n)) and rounds == 2
+    assert walked == n - 3 * chunk and rerun > 0
+    costs, valid = _chains_table(n, 7, chunk)
+    refs, depths, (rounds, rerun, walked) = select_model(
+        costs, valid, MAXREF_INF, chunk)
+    pr, pd = K.enc_select_plain(costs, valid, MAXREF_INF)
+    assert np.array_equal(refs, pr.numpy()) and np.array_equal(depths, pd)
+    assert rounds >= 3 and walked == 0 and rerun > 0
+    costs, valid = _gap_table(n, 7, chunk)
+    refs, depths, (rounds, rerun, walked) = select_model(
+        costs, valid, MAXREF_INF, chunk)
+    pr, pd = K.enc_select_plain(costs, valid, MAXREF_INF)
+    assert np.array_equal(refs, pr.numpy()) and np.array_equal(depths, pd)
+    assert rounds == 2 and 15 * chunk < walked <= 30 * chunk
+    costs, valid = _flat_table(n, 7)
+    assert select_model(costs, valid, 3, chunk)[2] == (1, 0, 0)
 
 
 # ----------------------------------------------------------------------
@@ -373,6 +570,67 @@ def test_encode_matches_host_store_gpu(cuda, tmp_path, name, gen, kw):
     after = (K.enc_costs.launches, K.enc_select.launches,
              K.enc_emit.launches, E.encode_device.reads)
     assert [b - a for a, b in zip(launches, after)] == [1, 1, 1, 2]
+
+
+SELECT_SIZES = (1, K.SELECT_CHUNK - 1, K.SELECT_CHUNK, K.SELECT_CHUNK + 1,
+                50_000)
+SELECT_COUNTS = ("select_rounds", "select_rerun_nodes", "select_serial_nodes")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,maxref", SELECT_CASES)
+def test_select_matches_plain_gpu(cuda, w, maxref):
+    """``enc_select`` on random tables of each size equals
+    ``enc_select_plain`` exactly, and its counts are the model's at the
+    kernel's chunk length."""
+    for n in SELECT_SIZES:
+        costs, valid = _random_table(n, w, n)
+        refs, depths = K.enc_select(costs.to(cuda), valid.to(cuda), maxref)
+        pr, pd = K.enc_select_plain(costs, valid, maxref)
+        assert torch.equal(refs.cpu(), pr) and torch.equal(depths.cpu(), pd), n
+        assert tuple(K.enc_select.last_counts.tolist()) \
+            == select_model(costs, valid, maxref, K.SELECT_CHUNK)[2], n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table,maxref", [("chain", MAXREF_INF),
+                                          ("chain", 3), ("chains", MAXREF_INF),
+                                          ("gap", MAXREF_INF), ("flat", 3)])
+def test_select_counts_gpu(cuda, table, maxref):
+    """A chain through every chunk engages a second round and the walk;
+    chains of three and a half chunks a third round; two chains with
+    chunks between them the walk past chunks that stand; a table whose
+    guesses hold re-runs nothing; one launch a call, and an encode
+    records the call's counts on its ``encode.read_totals``."""
+    n = 60 * K.SELECT_CHUNK + 7
+    costs, valid = (_chain_table(n, 7) if table == "chain" else
+                    _chains_table(n, 7, K.SELECT_CHUNK) if table == "chains"
+                    else _gap_table(n, 7, K.SELECT_CHUNK) if table == "gap"
+                    else _flat_table(n, 7))
+    launches = K.enc_select.launches
+    refs, depths = K.enc_select(costs.to(cuda), valid.to(cuda), maxref)
+    assert K.enc_select.launches == launches + 1
+    pr, pd = K.enc_select_plain(costs, valid, maxref)
+    assert torch.equal(refs.cpu(), pr) and torch.equal(depths.cpu(), pd)
+    counts = tuple(K.enc_select.last_counts.tolist())
+    assert counts == select_model(costs, valid, maxref, K.SELECT_CHUNK)[2]
+    rounds, rerun, walked = counts
+    if table == "chain" and maxref == MAXREF_INF:
+        assert rounds == 2 and walked == n - 3 * K.SELECT_CHUNK
+    if table == "chains":
+        assert rounds == 3 and walked == 0
+    if table == "gap":
+        c = K.SELECT_CHUNK
+        assert rounds == 2 and 15 * c < walked <= 30 * c
+    if table == "flat":
+        assert rounds <= 1 and rerun == 0 and walked == 0
+    g = deep_chain_graph(3000)
+    off, succ = _on(cuda, g)
+    with timing.recording() as spans:
+        E.encode_device(off, succ, BVGraphSettings(max_ref_count=maxref))
+    (t,) = [s for s in spans if s.name == "encode.read_totals"]
+    assert [t.counts[k] for k in SELECT_COUNTS] \
+        == K.enc_select.last_counts.tolist()
 
 
 @pytest.mark.gpu

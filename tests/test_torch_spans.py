@@ -182,7 +182,8 @@ def test_encode_counts_the_bytes_it_reads(graph):
                                           device="cpu")
     reads = {s.name: s.counts["d2h_bytes"] for s in spans
              if "d2h_bytes" in s.counts}
-    assert reads["encode.read_totals"] == 24  # three int64 totals
+    # three int64 totals and enc_select's three counts
+    assert reads["encode.read_totals"] == 48
     assert reads["encode.read_streams"] >= len(gb) + len(ob)
 
 

@@ -24,10 +24,22 @@
 //   valid and (r = 0 or the chain depth of x - r is under maxref), and
 //   only a strictly smaller cost replaces, so the first wins a tie; no
 //   candidate gives r = 0 and depth 0.  The state carried from node to
-//   node is the depth of the last w nodes: one thread runs the chain with
-//   it in registers (w <= 7; a ring in shared memory for larger windows),
-//   while the block's other warps stage the next chunk of cost rows in
-//   shared memory and write the last chunk's choices out.
+//   node is the depth of the last w nodes, and once two runs agree on it
+//   they agree on every later choice.  So one persistent cooperative
+//   launch cuts the nodes into chunks of SEL_C, a thread's chain each
+//   (the depths in registers for w <= 7, read back for larger windows),
+//   and (1) runs every chunk from a guessed ring of zero depths; (2) in a
+//   round, behind grid barriers, reads each chunk's true incoming ring and
+//   re-runs the chunks whose ring differs from the one they ran from,
+//   stopping each where its last w depths meet the stored ones; rounds go
+//   on while a repair changed a depth that a later chunk reads and, from
+//   the third, while they settle chunks fast enough (SEL_GAIN), at most
+//   SEL_ROUNDS; (3) if one still did, block 0 walks the chunks left
+//   unsettled in order, re-running those whose ring changed, warp 0
+//   stepping while the block's other warps stage each node's shifts in
+//   order of cost.  On web graphs a repair ends within ~80 nodes, so one
+//   round settles them; a chain through every chunk costs two rounds and
+//   then the serial walk.
 // * enc_emit replaces _chosen_structure, emit_graph and emit_offsets
 //   (:520-805): a thread a node re-runs its chosen merge, first to count
 //   (block count, where the sections start) and then to write its record
@@ -45,8 +57,9 @@
 // sum over the pairs of d(x) + d(z) steps, each a dependent load and
 // compare: the cell's 12 hubs of 1,500-6,000 arcs make the longest threads
 // (a warp or a block for a long pair is the later lever).  enc_select:
-// the serial chain of n steps, a compare, a select and an add each; its
-// bytes (the cost table read once) are far under it.
+// bytes, the cost table read once and refs and depths written once; a
+// thread's chain of SEL_C steps and each repair's, plus the walk where
+// the rounds do not settle, are its serial part.
 
 #include <cstdint>
 
@@ -68,8 +81,23 @@ constexpr int NSTATS = 10;  // the counters of bvgraph_jax_encode.py:787-790
 constexpr int NBINS = 33;   // each gap histogram (updateBins)
 constexpr int STATS = NSTATS + 2 * NBINS;  // then the error flag
 constexpr int SEL_THREADS = 256;
-constexpr int SEL_SMEM = 96 * 1024;  // enc_select's staged rows and ring
-constexpr int SEL_CHUNK = 2048;      // nodes a stage at most
+constexpr int SEL_SMEM = 96 * 1024;  // the walk's staged rows and ring
+constexpr int SEL_STAGE = 2048;      // nodes a stage of the walk at most
+constexpr int SEL_C = 128;           // nodes a chunk: a thread's chain
+constexpr int SEL_ROUNDS = 16;       // repair rounds at most
+// a round costs about as much as walking this many chunks (~60 against
+// ~9 us on an H100), so from the third a round runs only if the one
+// before cut the chunks still changing by this many
+constexpr int SEL_GAIN = 8;
+constexpr int SEL_GROUP = 4;         // rows a thread loads at once
+// enc_select's scratch: SEL_WORDS int64 (zeroed), then int32: two
+// [nch][w] rings and [nch] the round each chunk last changed its tail in;
+// kernels/encode.py holds the same numbers
+constexpr int SEL_WORDS = 32;
+constexpr int SW_ROUNDS = 0, SW_RERUN = 1, SW_SERIAL = 2;  // the counts
+constexpr int SW_BARRIER = 3;  // the grid barrier's count
+constexpr int SW_CHANGED = 4;  // + k - 1: the chunks round k changed
+static_assert(SW_CHANGED + SEL_ROUNDS <= SEL_WORDS, "the scratch's head");
 
 // error flags (stats[STATS])
 constexpr unsigned long long ERR_RECORD = 1;   // a record is not its planned length
@@ -258,130 +286,533 @@ enc_costs(const int64_t* __restrict__ off, const int32_t* __restrict__ succ,
   valid[i] = ok;
 }
 
-// CBS > 0: w + 1 = CBS, the last w depths in registers; CBS == 0: any
-// window, the ring of w + 1 depths in shared memory.  Shared memory holds
-// two stages of cost rows, two of outputs (refs, then depths, of a
-// chunk), then the ring.  In chunk c thread 0 runs the chain over stage
-// c & 1 into outputs c & 1, while warps 1.. fill stage (c + 1) & 1 and
-// write chunk c - 1's outputs out, both coalesced.
+// grid_sync's acquiring load (propagate.cu)
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every block of the grid meets here; `target` is the number of this
+// barrier times gridDim.x (the count only rises within a launch).
+__device__ void grid_sync(unsigned long long* count, unsigned long long target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1ull);
+    while (ld_acquire(count) < target) __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+struct Sel {
+  const int32_t* __restrict__ costs;
+  const uint8_t* __restrict__ valid;
+  int64_t n, nch;    // nodes, chunks of SEL_C
+  int cbs, stage;    // w + 1; nodes a stage of the walk
+  int32_t mr;        // maxref clamped to int32
+  bool aligned;      // costs on 16 bytes, valid on 8: vector loads
+  int32_t* refs;
+  int32_t* depths;
+  unsigned long long* head;  // the scratch's SEL_WORDS words
+  int32_t* last;     // [nch][w]: the ring each chunk last ran from
+  int32_t* snap;     // [nch][w]: the rings read at a round's start
+  int32_t* chg;      // [nch]: the round a chunk last changed its tail in
+};
+
+// A node's choice split at r = 1.  The shifts r = 0 and r >= 2 read the
+// depths of nodes before the last, known a step early, so prep reduces
+// them ahead of the chain; finish then waits on the last node's depth
+// alone: one compare and two selects a node on the chain.
+struct Pre {
+  int32_t r, d;  // the choice among r = 0 and r >= 2, the depth it gives
+  bool one;      // r = 1, if a candidate, replaces it
+};
+
+// From the node's row (-1 where the shift is no candidate), dep[r] the
+// depth of x - r: the shifts in the reference's order, a later one
+// replacing only when strictly cheaper (so the first wins a tie), by a
+// tree of minima; -1 is above every cost as unsigned.  No candidate gives
+// r = 0 and depth 0.
+template <int R>
+__device__ __forceinline__ Pre prep(const int32_t (&row)[R], const int32_t (&dep)[R],
+                                    int32_t mr) {
+  uint32_t c[R];
+  int32_t k[R], d[R];
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int32_t dr = r >= 2 ? dep[r] : 0;
+    const bool ok = r == 0 || (r >= 2 && row[r] >= 0 && dr < mr);
+    c[r] = ok ? static_cast<uint32_t>(row[r]) : 0xffffffffu;
+    k[r] = r;
+    d[r] = r ? dr + 1 : 0;
+  }
+#pragma unroll
+  for (int s = 1; s < R; s *= 2)
+#pragma unroll
+    for (int i = 0; i + s < R; i += 2 * s) {
+      const bool t = c[i + s] < c[i];
+      c[i] = t ? c[i + s] : c[i];
+      k[i] = t ? k[i + s] : k[i];
+      d[i] = t ? d[i + s] : d[i];
+    }
+  Pre q{k[0], d[0], false};
+  if (R > 1) {
+    const int32_t r1 = row[R > 1 ? 1 : 0];
+    const uint32_t c1 = static_cast<uint32_t>(r1);
+    q.one = r1 >= 0 && (k[0] ? c1 <= c[0] : c1 < c[0]);
+  }
+  return q;
+}
+
+// The choice and depth given d1, the depth of x - 1.
+__device__ __forceinline__ int32_t finish(const Pre& q, int32_t d1, int32_t mr, int& best_r) {
+  const bool take = q.one && d1 < mr;
+  best_r = take ? 1 : q.r;
+  return take ? d1 + 1 : q.d;
+}
+
+template <int R>
+__device__ __forceinline__ void push(int32_t (&dep)[R], int32_t d) {
+#pragma unroll
+  for (int r = R - 1; r > 1; r--) dep[r] = dep[r - 1];
+  if (R > 1) dep[1] = d;
+}
+
+template <int R>
+__device__ __forceinline__ void load_row(const Sel& p, int64_t x, int32_t (&row)[R]) {
+  const int64_t at = x * R;
+  if constexpr (R == 8) {
+    if (p.aligned) {  // a row: two 16-byte loads of costs, one 8-byte of valid
+      const int4 a = __ldg(reinterpret_cast<const int4*>(p.costs + at));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(p.costs + at) + 1);
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p.valid + at));
+      const int32_t c[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int r = 0; r < 8; r++)
+        row[r] = ((r < 4 ? v.x : v.y) >> (8 * (r & 3)) & 0xff) ? c[r] : -1;
+      return;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int32_t c = __ldg(p.costs + at + r);
+    row[r] = __ldg(p.valid + at + r) ? c : -1;
+  }
+}
+
+// Nodes [lo, end) of a chunk from dep (dep[r]: the depth of lo - r), a
+// thread's chain, SEL_GROUP rows loaded at once.  eq < 0: a first run.
+// eq >= 0: a repair, eq the depths before lo that agree with the ring the
+// chunk last ran from; each new depth is compared with the stored one, and
+// the repair stops once the last w agree, the rest of the chunk standing
+// (the rest of its group is run again to the same values, unwritten).
+// Returns the nodes run; tail: a depth of the chunk's last w nodes changed.
+template <int R>
+__device__ int64_t run_chunk(const Sel& p, int64_t lo, int64_t end, int32_t (&dep)[R], int eq,
+                             bool& tail) {
+  const bool repair = eq >= 0;
+  int64_t ran = 0;
+  for (int64_t x = lo; x < end && !(repair && eq >= R - 1); x += SEL_GROUP) {
+    int32_t rows[SEL_GROUP][R], old[SEL_GROUP];
+#pragma unroll
+    for (int i = 0; i < SEL_GROUP; i++) {
+      if (x + i < end) {
+        load_row(p, x + i, rows[i]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; r++) rows[i][r] = -1;
+      }
+      old[i] = repair && x + i < end ? p.depths[x + i] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < SEL_GROUP; i++) {
+      const int64_t y = x + i;
+      const bool on = y < end && !(repair && eq >= R - 1);
+      int best_r;
+      const int32_t d = finish(prep(rows[i], dep, p.mr), dep[R > 1 ? 1 : 0], p.mr, best_r);
+      push(dep, d);
+      if (on) {
+        if (repair) {
+          const bool same = d == old[i];
+          eq = same ? eq + 1 : 0;
+          tail |= !same && y >= end - (R - 1);
+        }
+        p.refs[y] = best_r;
+        p.depths[y] = d;
+        ran++;
+      }
+    }
+  }
+  return ran;
+}
+
+// run_chunk for any window: the depths of the chunk's own nodes read back
+// from `depths`, those before it from ring[0, w) (the depth of lo - w + j
+// at j; nullptr: all 0).
+__device__ int64_t run_chunk_any(const Sel& p, int64_t lo, int64_t end, const int32_t* ring,
+                                 int eq, bool& tail) {
+  const int w = p.cbs - 1;
+  const bool repair = eq >= 0;
+  int64_t ran = 0;
+  for (int64_t x = lo; x < end && !(repair && eq >= w); x++) {
+    const int32_t* cr = p.costs + x * p.cbs;
+    const uint8_t* vr = p.valid + x * p.cbs;
+    int32_t best = __ldg(vr) ? __ldg(cr) : -1, best_dep = -1;
+    int best_r = 0;
+    for (int r = 1; r <= w; r++) {
+      const int32_t c = __ldg(cr + r);
+      if (!__ldg(vr + r) || (best >= 0 && c >= best)) continue;
+      const int64_t z = x - r;
+      const int32_t dz = z >= lo ? p.depths[z] : (ring ? ring[z - lo + w] : 0);
+      if (dz < p.mr) {
+        best = c;
+        best_r = r;
+        best_dep = dz;
+      }
+    }
+    const int32_t d = best_dep + 1;
+    if (repair) {
+      const bool same = d == p.depths[x];
+      eq = same ? eq + 1 : 0;
+      tail |= !same && x >= end - w;
+    }
+    p.refs[x] = best_r;
+    p.depths[x] = d;
+    ran++;
+  }
+  return ran;
+}
+
+// A node's shifts r >= 1 that beat r = 0 (every candidate one if r = 0 is
+// not), by cost and then shift, a nibble each from the lowest, 0 after
+// the last: the walk takes the first one whose node's depth is under
+// maxref, else r = 0 with depth 0.  The nibbles are byte selectors
+// (__byte_perm) into the walk's bytes of depth flags.
+template <int R>
+__device__ __forceinline__ uint32_t order_of(const int32_t (&row)[R]) {
+  const uint32_t c0 = static_cast<uint32_t>(row[0]);  // -1: above every cost
+  bool in[R];
+#pragma unroll
+  for (int r = 0; r < R; r++) in[r] = r > 0 && row[r] >= 0 && static_cast<uint32_t>(row[r]) < c0;
+  uint32_t ord = 0;
+#pragma unroll
+  for (int r = 1; r < R; r++) {
+    int rank = 0;
+#pragma unroll
+    for (int s = 1; s < R; s++)
+      rank += s != r && in[s] && (row[s] < row[r] || (row[s] == row[r] && s < r));
+    ord |= in[r] ? static_cast<uint32_t>(r) << (4 * rank) : 0u;
+  }
+  return ord;
+}
+
+// The walk, where the last round k still changed a chunk's tail: block 0
+// goes chunk after chunk from f, the first chunk whose ring round k
+// changed, to past l, the last, each from the true ring.  It re-runs, as
+// a repair, a chunk whose ring round k or the walk changed: from the
+// agreement of the true ring with the one the chunk last ran from, each
+// new depth compared with the stored one; where the last w agree the
+// rest stands (run again to the same values, uncounted).  Other chunks
+// stand as they are.  Warp 0 steps while warps 1.. fill the next stage
+// and write the last stage's choices out.  A stage holds, a node each,
+// the stored depth and, CBS > 0 (w + 1 = CBS), its order_of: a step reads
+// one word, permutes the depth flags (byte r of fl, fh: 0xff where the
+// depth of x - r is under maxref) into the order, takes the first set,
+// and picks its depth, the last w in registers; CBS == 0 (any window),
+// its row of costs (-1 where the shift is no candidate), the ring of
+// w + 1 depths in shared memory.  Shared memory: two stages, two of
+// outputs (refs, -1 where the chunk stands, then depths), then the ring.
+// Returns the nodes re-run (thread 0).
 template <int CBS>
-__global__ void __launch_bounds__(SEL_THREADS)
-enc_select(const int32_t* __restrict__ costs, const uint8_t* __restrict__ valid,
-           int64_t n, int cbs_rt, int64_t maxref, int chunk, bool aligned,
-           int32_t* __restrict__ refs, int32_t* __restrict__ depths) {
-  extern __shared__ __align__(16) int32_t sm[];
-  const int cbs = CBS > 0 ? CBS : cbs_rt;
-  const int64_t span = static_cast<int64_t>(chunk) * cbs;
+__device__ __forceinline__ int64_t walk(const Sel& p, int32_t* sm, int k) {
+  __shared__ int64_t s_stop;  // nodes of the stage run where the walk ended; -1 on
+  __shared__ int s_f, s_l;
+  const int w = p.cbs - 1;
+  const int cbs = CBS > 0 ? CBS : p.cbs;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    s_stop = -1;
+    s_f = 0x7fffffff;
+    s_l = 0;
+  }
+  __syncthreads();
+  for (int64_t c = threadIdx.x; c < p.nch; c += blockDim.x)
+    if (__ldcg(p.chg + c) == k) {
+      atomicMin(&s_f, static_cast<int>(c + 1));
+      atomicMax(&s_l, static_cast<int>(c + 1));
+    }
+  __syncthreads();
+  const int64_t f = s_f, l = s_l;
+  const int stage = p.stage;
+  const int64_t per = CBS > 0 ? 2 : cbs + 1;  // ints a node of a stage
+  const int64_t span = per * stage;
   int32_t* const stage0 = sm;
   int32_t* const out0 = sm + 2 * span;
-  int32_t* const ring = out0 + 4 * chunk;
-  const int64_t nch = (n + chunk - 1) / chunk;
-  const bool vec = aligned && span % 4 == 0;  // 16-byte loads and stores
-  // a stage: each node's row of costs, -1 where the shift is no candidate
+  int32_t* const ring = out0 + 4 * stage;
+  const int64_t x0 = f * SEL_C, nst = (p.n - x0 + stage - 1) / stage;
+  // a stage: the stored depths, then each node's order_of or row
   auto fill = [&](int64_t c, int t0, int nt) {
-    int32_t* dst = stage0 + (c & 1) * span;
-    const int64_t first = c * span;
-    const int64_t cnt = imin(chunk, n - c * chunk) * cbs;
-    int64_t j = 0;
-    if (vec) {
-      const int4* cv = reinterpret_cast<const int4*>(costs + first);
-      const uchar4* vv = reinterpret_cast<const uchar4*>(valid + first);
-      for (int64_t q = t0; q < cnt / 4; q += nt) {
-        const int4 cc = __ldg(cv + q);
-        const uchar4 ok = __ldg(vv + q);
-        reinterpret_cast<int4*>(dst)[q] =
-            make_int4(ok.x ? cc.x : -1, ok.y ? cc.y : -1, ok.z ? cc.z : -1,
-                      ok.w ? cc.w : -1);
+    int32_t* const dst = stage0 + (c & 1) * span;
+    int32_t* const rows = dst + stage;
+    const int64_t x1 = x0 + c * stage, nodes = imin(stage, p.n - x1);
+    for (int64_t j = t0; j < nodes; j += nt) dst[j] = __ldcg(p.depths + x1 + j);
+    if constexpr (CBS > 0) {
+      for (int64_t j = t0; j < nodes; j += nt) {
+        int32_t row[CBS];
+        load_row(p, x1 + j, row);
+        rows[j] = static_cast<int32_t>(order_of(row));
       }
-      j = cnt / 4 * 4;
-    }
-    for (j += t0; j < cnt; j += nt) {
-      const int32_t cc = __ldg(costs + first + j);
-      dst[j] = __ldg(valid + first + j) ? cc : -1;
+    } else {
+      const int64_t first = x1 * cbs, cnt = nodes * cbs;
+      for (int64_t j = t0; j < cnt; j += nt) {
+        const int32_t cc = __ldg(p.costs + first + j);
+        rows[j] = __ldg(p.valid + first + j) ? cc : -1;
+      }
     }
   };
-  auto drain = [&](int64_t c, int t0, int nt) {
-    const int32_t* o = out0 + (c & 1) * 2 * chunk;
-    const int64_t x0 = c * chunk, cnt = imin(chunk, n - x0);
-    for (int64_t j = t0; j < cnt; j += nt) {
-      refs[x0 + j] = o[j];
-      depths[x0 + j] = o[chunk + j];
-    }
+  auto drain = [&](int64_t c, int64_t cnt, int t0, int nt) {
+    const int32_t* o = out0 + (c & 1) * 2 * stage;
+    const int64_t x1 = x0 + c * stage;
+    for (int64_t j = t0; j < cnt; j += nt)
+      if (o[j] >= 0) {
+        p.refs[x1 + j] = o[j];
+        p.depths[x1 + j] = o[stage + j];
+      }
   };
   if (CBS == 0)
-    for (int j = threadIdx.x; j < cbs; j += blockDim.x) ring[j] = 0;
+    for (int r = 1 + threadIdx.x; r < cbs; r += blockDim.x) {
+      const int64_t z = x0 - r;
+      ring[(z % cbs + cbs) % cbs] = z >= 0 ? __ldcg(p.depths + z) : 0;
+    }
   fill(0, threadIdx.x, blockDim.x);
   __syncthreads();
   constexpr int R = CBS > 0 ? CBS : 1;
-  int32_t dep[R];  // dep[r]: the depth of node x - r (0 before node 0)
+  int32_t dep[R];  // dep[r]: the depth of node x - r
+  uint32_t fl = 0, fh = 0;  // byte r of (fh:fl): 0xff where dep[r] < maxref (r >= 1)
 #pragma unroll
-  for (int r = 0; r < R; r++) dep[r] = 0;
-  // a depth is at most n - 1 < 2^31 - 1, so clamping maxref keeps `<`
-  const int32_t mr = static_cast<int32_t>(
-      maxref > 0x7fffffff ? 0x7fffffff : (maxref < 0 ? -1 : maxref));
-  int xm = 0;  // x mod cbs (the ring)
-  for (int64_t c = 0; c < nch; c++) {
+  for (int r = 0; r < R; r++) {
+    dep[r] = r ? __ldcg(p.depths + x0 - r) : 0;
+    const uint32_t f = r && dep[r] < p.mr ? 0xffu : 0u;
+    fl |= r < 4 ? f << (8 * r) : 0u;
+    fh |= r >= 4 ? f << (8 * (r - 4)) : 0u;
+  }
+  int xm = static_cast<int>(x0 % cbs);  // x mod cbs (the ring)
+  // the next node's depth enters the ring
+  auto take = [&](int32_t depth) {
+    if (CBS > 0) {
+      fh = __funnelshift_l(fl, fh, 8);
+      fl = fl << 8 | (depth < p.mr ? 0xff00u : 0u);
+      push(dep, depth);
+    } else {
+      ring[xm] = depth;
+      xm = xm + 1 == cbs ? 0 : xm + 1;
+    }
+  };
+  bool run = false;  // the walk re-runs the chunk it is in
+  int eq = 0;        // the depths agreeing, in such a chunk
+  bool settled = false;
+  int64_t walked = 0, c = 0;
+  for (; c < nst; c++) {
     if (threadIdx.x >= 32) {
-      if (c + 1 < nch) fill(c + 1, threadIdx.x - 32, blockDim.x - 32);
-      if (c > 0) drain(c - 1, threadIdx.x - 32, blockDim.x - 32);
-    } else if (threadIdx.x == 0) {
-      const int32_t* row = stage0 + (c & 1) * span;
-      int32_t* o = out0 + (c & 1) * 2 * chunk;
-      const int64_t cnt = imin(chunk, n - c * chunk);
-      // the next node's row is loaded while this one's step runs
-      int32_t cur[R], nxt[R];
-#pragma unroll
-      for (int r = 0; r < R; r++) cur[r] = CBS > 0 ? row[r] : 0;
-      for (int64_t i = 0; i < cnt; i++, row += cbs) {
-        int best_r = 0;
-        int32_t best = -1, best_dep = -1;
+      if (c + 1 < nst) fill(c + 1, threadIdx.x - 32, blockDim.x - 32);
+      if (c > 0) drain(c - 1, stage, threadIdx.x - 32, blockDim.x - 32);
+    } else {  // warp 0 steps, its lanes in step (no divergent path to yield to)
+      const int32_t* const old = stage0 + (c & 1) * span;
+      const int32_t* const st = old + stage;
+      int32_t* const o = out0 + (c & 1) * 2 * stage;
+      const int64_t x1 = x0 + c * stage, cnt = imin(stage, p.n - x1);
+      uint32_t nx = CBS > 0 ? static_cast<uint32_t>(st[0]) : 0u;  // read a node ahead
+      // node i's choice, written to the outputs; returns its depth
+      auto step = [&](int64_t i) {
+        int32_t depth, best_r = 0;
         if (CBS > 0) {
-          const bool more = i + 1 < cnt;
+          // the flags in the order's order (byte 0, r = 0, is clear, so
+          // the zeros past the list never hit); the first set is the shift
+          const uint32_t ord = nx;
+          nx = i + 1 < cnt ? static_cast<uint32_t>(st[i + 1]) : 0u;
+          const uint32_t lo = __byte_perm(fl, fh, ord & 0xffff);
+          const uint32_t hi = __byte_perm(fl, fh, ord >> 16);
+          const int kk = lo ? (__ffs(lo) - 1) >> 3 : 4 + ((__ffs(hi) - 1) >> 3);
+          const int e = lo | hi ? static_cast<int>(ord >> (4 * kk) & 7) : 0;
+          // dep[e] by a tree of selects on e's bits, the newest depth
+          // (dep[1]) three selects from the result
+          int32_t t[8];
 #pragma unroll
-          for (int r = 0; r < R; r++) nxt[r] = more ? row[cbs + r] : 0;
-          // shifts in turn, a strictly smaller cost replacing (a tree of
-          // minima measured slower on the card); an invalid slot is -1,
-          // as unsigned above every cost
-          uint32_t b = static_cast<uint32_t>(cur[0]);
+          for (int j = 0; j < 8; j++) t[j] = j && j < R ? dep[j < R ? j : 0] : 0;
 #pragma unroll
-          for (int r = 1; r < R; r++) {
-            const bool take = cur[r] >= 0 && dep[r] < mr
-                              && static_cast<uint32_t>(cur[r]) < b;
-            b = take ? static_cast<uint32_t>(cur[r]) : b;
-            best_r = take ? r : best_r;
-            best_dep = take ? dep[r] : best_dep;
-          }
+          for (int b = 0; b < 3; b++)
 #pragma unroll
-          for (int r = 0; r < R; r++) cur[r] = nxt[r];
+            for (int j = 0; j < 8 >> (b + 1); j++) t[j] = e >> b & 1 ? t[2 * j + 1] : t[2 * j];
+          depth = e ? t[0] + 1 : 0;
+          best_r = e;
         } else {
+          const int32_t* row = st + i * cbs;
+          int32_t best = -1, best_dep = -1;
           for (int r = 0; r < cbs; r++) {
             const int32_t cr = row[r];
             int slot = xm - r;
             if (slot < 0) slot += cbs;
             const int32_t dr = ring[slot];
-            if (cr >= 0 && (r == 0 || dr < maxref) && (best < 0 || cr < best)) {
+            if (cr >= 0 && (r == 0 || dr < p.mr) && (best < 0 || cr < best)) {
               best = cr;
               best_r = r;
               best_dep = r ? dr : -1;
             }
           }
+          depth = best_dep + 1;
         }
-        const int32_t depth = best_dep + 1;  // 0 for r = 0 or no candidate
-        if (CBS > 0) {
-#pragma unroll
-          for (int r = R - 1; r > 1; r--) dep[r] = dep[r - 1];
-          if (R > 1) dep[1] = depth;
-        } else {
-          ring[xm] = depth;
-          xm = xm + 1 == cbs ? 0 : xm + 1;
-        }
+        take(depth);
         o[i] = best_r;
-        o[chunk + i] = depth;
+        o[stage + i] = depth;
+        return depth;
+      };
+      for (int64_t i = 0; i < cnt;) {
+        const int64_t x = x1 + i;
+        if (x % SEL_C == 0) {  // a chunk's first node
+          const int64_t ch = x / SEL_C;
+          const bool moved = run && eq < w;  // the walk changed the last chunk's tail
+          if (ch > l && !moved) {
+            s_stop = i;
+            break;
+          }
+          run = moved || __ldcg(p.chg + ch - 1) == k;
+          settled = false;
+          if (CBS > 0) nx = static_cast<uint32_t>(st[i]);  // past a chunk that stands
+          if (run) {  // the true ring against the one the chunk last ran from
+            const int32_t* g = p.last + ch * w;
+            bool same = true;
+            eq = 0;
+            if (CBS > 0) {
+#pragma unroll
+              for (int r = 1; r < R; r++) {
+                same = same && __ldcg(g + w - r) == dep[r];
+                eq += same;
+              }
+            } else {
+              for (int r = 1; r <= w; r++) {
+                const int slot = xm - r < 0 ? xm - r + cbs : xm - r;
+                same = same && __ldcg(g + w - r) == ring[slot];
+                eq += same;
+              }
+            }
+          }
+        }
+        // to the chunk's end (or the stage's) with no branch but the loop's
+        const int64_t lim = imin(cnt, i + SEL_C - x % SEL_C);
+        if (run) {
+          for (; i < lim; i++) {
+            // settled: the rest of the chunk runs again to its stored values
+            settled = settled || eq >= w;
+            eq = step(i) == old[i] ? eq + 1 : 0;
+            walked += !settled;
+          }
+        } else {  // the chunk stands: its last w depths enter the ring
+          for (int64_t j = i + lane; j < lim; j += 32) o[j] = -1;
+          for (int64_t j = lim - w > i ? lim - w : i; j < lim; j++) take(old[j]);
+          i = lim;
+        }
       }
     }
     __syncthreads();
+    if (s_stop >= 0) break;
   }
-  drain(nch - 1, threadIdx.x, blockDim.x);
+  if (c < nst)
+    drain(c, s_stop, threadIdx.x, blockDim.x);
+  else
+    drain(nst - 1, imin(stage, p.n - x0 - (nst - 1) * stage), threadIdx.x, blockDim.x);
+  return walked;
+}
+
+// The chunks a thread takes: lane l of warp slot s (warp-major over the
+// blocks, so the first slots spread over the SMs) takes chunk 32 s + l,
+// then 32 (s + slots) + l, ...
+struct Chunks {
+  int64_t first, step;
+  __device__ Chunks()
+      : first((static_cast<int64_t>(threadIdx.x / 32) * gridDim.x + blockIdx.x) * 32 +
+              (threadIdx.x & 31)),
+        step(static_cast<int64_t>(gridDim.x) * blockDim.x) {}
+};
+
+// Chunks of SEL_C nodes, a thread each: (1) each runs from a ring of zero
+// depths; (2) a round reads every chunk's incoming ring (the depths of the
+// w nodes before it) behind a grid barrier, and a chunk whose ring differs
+// from the one it last ran from re-runs from it (run_chunk's repair); rounds
+// go on while a repair changed a depth that a later chunk's ring holds, the
+// third and later only while the round before cut the chunks still
+// changing by SEL_GAIN, at most SEL_ROUNDS; (3) if one still did, block 0
+// walks the rest.  head: [SW_ROUNDS] rounds run, [SW_RERUN] nodes re-run
+// by repairs, [SW_SERIAL] nodes re-run by the walk.
+template <int CBS>
+__global__ void __launch_bounds__(SEL_THREADS) enc_select(Sel p) {
+  extern __shared__ __align__(16) int32_t sm[];
+  const int w = p.cbs - 1;
+  const Chunks ch;
+  unsigned long long* const head = p.head;
+  for (int64_t c = ch.first; c < p.nch; c += ch.step) {
+    bool tail = false;
+    const int64_t lo = c * SEL_C, end = imin(lo + SEL_C, p.n);
+    if constexpr (CBS > 0) {
+      int32_t dep[CBS] = {};
+      run_chunk(p, lo, end, dep, -1, tail);
+    } else {
+      run_chunk_any(p, lo, end, nullptr, -1, tail);
+    }
+  }
+  unsigned long long bar = 0;  // barriers passed
+  int64_t rerun = 0;
+  int rounds = 0;
+  bool walking = false;
+  for (int k = 1; p.nch > 1; k++) {
+    grid_sync(head + SW_BARRIER, ++bar * gridDim.x);
+    if (k > 1) {
+      const unsigned long long ck = __ldcg(head + SW_CHANGED + k - 2);
+      if (ck == 0) break;
+      if (k > SEL_ROUNDS || (k > 2 && __ldcg(head + SW_CHANGED + k - 3) < ck + SEL_GAIN)) {
+        walking = true;
+        break;
+      }
+    }
+    rounds = k;
+    for (int64_t c = ch.first; c < p.nch; c += ch.step)
+      for (int j = 0; j < w; j++) {
+        const int64_t z = c * SEL_C - w + j;
+        p.snap[c * w + j] = z >= 0 ? __ldcg(p.depths + z) : 0;
+      }
+    grid_sync(head + SW_BARRIER, ++bar * gridDim.x);
+    for (int64_t c = ch.first; c < p.nch; c += ch.step) {
+      int32_t* const s = p.snap + c * w;
+      int32_t* const g = p.last + c * w;
+      int eq = 0;  // the depths before the chunk that agree, nearest first
+      while (eq < w && s[w - 1 - eq] == g[w - 1 - eq]) eq++;
+      if (c == 0 || eq == w) continue;
+      bool tail = false;
+      const int64_t lo = c * SEL_C, end = imin(lo + SEL_C, p.n);
+      if constexpr (CBS > 0) {
+        int32_t dep[CBS];
+        dep[0] = 0;
+#pragma unroll
+        for (int r = 1; r < CBS; r++) dep[r] = s[w - r];
+        rerun += run_chunk(p, lo, end, dep, eq, tail);
+      } else {
+        rerun += run_chunk_any(p, lo, end, s, eq, tail);
+      }
+      for (int j = 0; j < w; j++) g[j] = s[j];
+      if (tail && c + 1 < p.nch) {
+        atomicAdd(head + SW_CHANGED + k - 1, 1ull);
+        p.chg[c] = k;
+      }
+    }
+  }
+  if (rerun) atomicAdd(head + SW_RERUN, static_cast<unsigned long long>(rerun));
+  if (blockIdx.x != 0) return;
+  if (walking) {
+    const int64_t walked = walk<CBS>(p, sm, rounds);
+    if (threadIdx.x == 0) head[SW_SERIAL] = walked;
+  }
+  if (threadIdx.x == 0) head[SW_ROUNDS] = rounds;
 }
 
 // words: the .graph stream (nullptr: offsets only); owords: the .offsets
@@ -506,24 +937,51 @@ bool settings_ok(const Settings& s) {
   return s.k >= 1 && s.w >= 0 && s.minint >= 0;
 }
 
+// The most blocks of enc_select<CBS> co-resident at `smem` bytes a block,
+// found once a device and instance (the generic one again when its shared
+// memory changes).
+int g_sel[64][9][2];  // [device][CBS][smem, blocks]
+
 template <int CBS>
-cudaError_t launch_select(const void* costs, const void* valid, int64_t n, int cbs,
-                          int64_t maxref, void* refs, void* depths, cudaStream_t st) {
-  // nodes a chunk: a multiple of 4 where it fits, so the stages take
-  // 16-byte loads
-  int64_t chunk = imin(SEL_CHUNK, (SEL_SMEM / 4 - cbs) / (2 * static_cast<int64_t>(cbs) + 4));
-  if (chunk >= 4) chunk &= ~int64_t{3};
-  if (chunk < 1) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>((2 * chunk * cbs + 4 * chunk + (CBS == 0 ? cbs : 0)) * 4);
+cudaError_t launch_select(Sel p, cudaStream_t st) {
+  // nodes a stage of the walk: a multiple of 4 where it fits, so the
+  // stages take 16-byte loads
+  const int64_t per = CBS > 0 ? 2 : p.cbs + 1;  // ints a node of a stage
+  int64_t stage = imin(SEL_STAGE, (SEL_SMEM / 4 - p.cbs) / (2 * per + 4));
+  if (stage >= 4) stage &= ~int64_t{3};
+  if (stage < 1) return cudaErrorInvalidValue;
+  p.stage = static_cast<int>(stage);
+  const int smem = static_cast<int>((2 * stage * per + 4 * stage + (CBS == 0 ? p.cbs : 0)) * 4);
+  const void* kernel = reinterpret_cast<const void*>(enc_select<CBS>);
   cudaError_t e = cudaFuncSetAttribute(enc_select<CBS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const bool aligned = reinterpret_cast<uintptr_t>(costs) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(valid) % 4 == 0;
-  enc_select<CBS><<<1, SEL_THREADS, smem, st>>>(
-      static_cast<const int32_t*>(costs), static_cast<const uint8_t*>(valid), n, cbs,
-      maxref, static_cast<int>(chunk), aligned, static_cast<int32_t*>(refs),
-      static_cast<int32_t*>(depths));
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  int* const cache = g_sel[dev][CBS];
+  if (cache[0] != smem) {
+    int coop = 0, sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SEL_THREADS, smem);
+    if (e != cudaSuccess) return e;
+    if (!coop) return cudaErrorNotSupported;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[0] = smem;
+    cache[1] = sms * per_sm;
+  }
+  // a warp slot a block first, so that a small grid's chains spread over
+  // the SMs; no more blocks than warps of 32 chunks
+  const int64_t want = (p.nch + 31) / 32;
+  const unsigned blocks = static_cast<unsigned>(imin(want, cache[1]));
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(SEL_THREADS), args, smem, st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch is not blamed
+    return e;
+  }
   return cudaGetLastError();
 }
 
@@ -544,21 +1002,44 @@ extern "C" int wgt_enc_costs(const void* off, const void* succ, int64_t n, int o
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: int64[scratch_words], zeroed, at least SEL_WORDS + nch (2 w +
+// 1) / 2 rounded up (nch = ceil(n / SEL_C)); its first three words get
+// the counts.
 extern "C" int wgt_enc_select(const void* costs, const void* valid, int64_t n, int w,
-                              int64_t maxref, void* refs, void* depths, void* stream) {
-  if (n < 1 || w < 0) return static_cast<int>(cudaErrorInvalidValue);
+                              int64_t maxref, void* refs, void* depths, void* scratch,
+                              int64_t scratch_words, void* stream) {
+  if (n < 1 || w < 0 || !scratch) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t nch = (n + SEL_C - 1) / SEL_C;
+  if (scratch_words < SEL_WORDS + (nch * (2 * w + 1) + 1) / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Sel p{};
+  p.costs = static_cast<const int32_t*>(costs);
+  p.valid = static_cast<const uint8_t*>(valid);
+  p.n = n;
+  p.nch = nch;
+  p.cbs = w + 1;
+  // a depth is at most n - 1 < 2^31 - 1, so clamping maxref keeps `<`
+  p.mr = static_cast<int32_t>(maxref > 0x7fffffff ? 0x7fffffff : (maxref < 0 ? -1 : maxref));
+  p.aligned = reinterpret_cast<uintptr_t>(costs) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(valid) % 8 == 0;
+  p.refs = static_cast<int32_t*>(refs);
+  p.depths = static_cast<int32_t*>(depths);
+  p.head = static_cast<unsigned long long*>(scratch);
+  p.last = reinterpret_cast<int32_t*>(p.head + SEL_WORDS);
+  p.snap = p.last + nch * w;
+  p.chg = p.snap + nch * w;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (w + 1) {
-    case 1: e = launch_select<1>(costs, valid, n, 1, maxref, refs, depths, st); break;
-    case 2: e = launch_select<2>(costs, valid, n, 2, maxref, refs, depths, st); break;
-    case 3: e = launch_select<3>(costs, valid, n, 3, maxref, refs, depths, st); break;
-    case 4: e = launch_select<4>(costs, valid, n, 4, maxref, refs, depths, st); break;
-    case 5: e = launch_select<5>(costs, valid, n, 5, maxref, refs, depths, st); break;
-    case 6: e = launch_select<6>(costs, valid, n, 6, maxref, refs, depths, st); break;
-    case 7: e = launch_select<7>(costs, valid, n, 7, maxref, refs, depths, st); break;
-    case 8: e = launch_select<8>(costs, valid, n, 8, maxref, refs, depths, st); break;
-    default: e = launch_select<0>(costs, valid, n, w + 1, maxref, refs, depths, st);
+    case 1: e = launch_select<1>(p, st); break;
+    case 2: e = launch_select<2>(p, st); break;
+    case 3: e = launch_select<3>(p, st); break;
+    case 4: e = launch_select<4>(p, st); break;
+    case 5: e = launch_select<5>(p, st); break;
+    case 6: e = launch_select<6>(p, st); break;
+    case 7: e = launch_select<7>(p, st); break;
+    case 8: e = launch_select<8>(p, st); break;
+    default: e = launch_select<0>(p, st);
   }
   return static_cast<int>(e);
 }

@@ -161,15 +161,18 @@ def encode_device(offsets, succ, settings, shard_start: int = 0,
     Returns ``(graph_bytes, graph_bits, offsets_bytes, offsets_bits,
     stats)``, ``stats`` the host ``_CompressionStats`` fields.  Three
     launches on a CUDA device (``enc_costs``, ``enc_select``, ``enc_emit``)
-    and two host reads (:attr:`encode_device.reads`): the two totals, then
-    the streams and stats.  Raises ValueError for a graph without nodes or
-    arcs and RuntimeError if a record is not the length its cost planned.
+    and two host reads (:attr:`encode_device.reads`): the two totals (and
+    ``enc_select``'s three counts), then the streams and stats.  Raises
+    ValueError for a graph without nodes or arcs and RuntimeError if a
+    record is not the length its cost planned.
 
     Host spans (``timing.span``): ``encode``, holding ``encode.costs``,
     ``encode.select``, ``encode.layout`` (the record lengths, bit starts
     and ``.offsets`` positions), ``encode.read_totals``, ``encode.emit``,
-    ``encode.read_streams`` (both reads count ``d2h_bytes``) and
-    ``encode.unpack`` (the bytes and stats)."""
+    ``encode.read_streams`` (both reads count ``d2h_bytes``;
+    ``encode.read_totals`` also ``select_rounds``, ``select_rerun_nodes``
+    and ``select_serial_nodes``, ``enc_select.last_counts``: zeros on the
+    CPU) and ``encode.unpack`` (the bytes and stats)."""
     with span("encode"):
         dev = torch.device(device)
         off = _tensor(offsets, torch.int64, dev)
@@ -187,10 +190,13 @@ def encode_device(offsets, succ, settings, shard_start: int = 0,
             node_bits = node_bits_of(off, costs, refs, skey)
             starts = _starts(node_bits)
             opos = K.offset_positions(node_bits, off_c, zeta_k)
-            totals = torch.stack([starts[-1], opos[-1], off[-1]])
+            totals = torch.cat([torch.stack([starts[-1], opos[-1], off[-1]]),
+                                K.enc_select.last_counts])
         with span("encode.read_totals") as s:
             s.count(d2h_bytes=totals.nbytes)
-            tb, tob, m_off = totals.tolist()
+            tb, tob, m_off, rounds, rerun, walked = totals.tolist()
+            s.count(select_rounds=rounds, select_rerun_nodes=rerun,
+                    select_serial_nodes=walked)
         encode_device.reads += 1
         if m_off != m:
             raise ValueError(f"offsets end at {m_off}, but succ holds {m} "

@@ -86,8 +86,9 @@ _SIGNATURES = {
         # shard_start, costs, valid, stream
         "wgt_enc_costs": (_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _L,
                           _P, _P, _P),
-        # costs, valid, n, window, maxref, refs, depths, stream
-        "wgt_enc_select": (_P, _P, _L, _I, _L, _P, _P, _P),
+        # costs, valid, n, window, maxref, refs, depths, scratch,
+        # scratch words, stream
+        "wgt_enc_select": (_P, _P, _L, _I, _L, _P, _P, _P, _L, _P),
         # off, succ, refs, depths, starts, n, outd, ref, bcnt, blk, res,
         # zeta_k, window, minint, words, opos, offset coding, owords, stats,
         # stream

@@ -46,6 +46,14 @@ NSTATS = 10  # bits of outdegrees, references, blocks, intervals, residuals;
 NBINS = 33   # each gap histogram (updateBins, BVGraph.java:1940-1944)
 STATS = NSTATS + 2 * NBINS
 ERR = STATS  # the kernel's error flag: the stats tensor holds STATS + 1
+# enc_select (csrc/encode.cu SEL_C, SEL_ROUNDS, SEL_GAIN, SEL_WORDS):
+# nodes a chunk; the most repair rounds; by how many a round must cut the
+# chunks still changing for a third or later to run; the int64 words of
+# its scratch's head (the three counts, the barrier, the rounds' tallies)
+SELECT_CHUNK = 128
+SELECT_ROUNDS = 16
+SELECT_GAIN = 8
+SELECT_WORDS = 32
 CODINGS = (C.GAMMA, C.DELTA, C.ZETA, C.UNARY, C.GOLOMB, C.NIBBLE)
 _I64 = torch.int64
 
@@ -613,8 +621,14 @@ def enc_select(costs, valid, maxref):
     """Each node's reference and chain depth (``refs``, ``depths``,
     ``int32[n]``) from :func:`enc_costs`' output under ``maxref``, as the
     JAX ``select_references``.  CPU tensors take :func:`enc_select_plain`;
-    CUDA tensors launch ``enc_select`` once (one block), counted in
-    ``enc_select.launches``."""
+    CUDA tensors launch ``enc_select`` once (chunks of
+    :data:`SELECT_CHUNK` nodes in parallel, repaired from their
+    predecessors' depths), counted in ``enc_select.launches``.
+
+    ``enc_select.last_counts`` is then the call's int64[3] on its device,
+    never read here: repair rounds run, nodes re-run by the rounds'
+    repairs and nodes re-run by the serial walk that follows rounds which
+    stop settling (zeros on the CPU)."""
     dev = costs.device
     _check("enc_select", dev, costs=(costs, torch.int32, 2),
            valid=(valid, torch.bool, 2))
@@ -622,21 +636,28 @@ def enc_select(costs, valid, maxref):
         raise ValueError("enc_select: costs and valid must be one non-empty "
                          "[n, w+1] shape")
     if dev.type == "cpu":
+        enc_select.last_counts = torch.zeros(3, dtype=_I64)
         return enc_select_plain(costs, valid, maxref)
     n, cbs = costs.shape
     refs = torch.empty(n, dtype=torch.int32, device=dev)
     depths = torch.empty(n, dtype=torch.int32, device=dev)
+    nch = -(-n // SELECT_CHUNK)
+    words = SELECT_WORDS + (nch * (2 * cbs - 1) + 1) // 2
+    scratch = torch.zeros(words, dtype=_I64, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.wgt_enc_select(costs.data_ptr(), valid.data_ptr(), n, cbs - 1,
                                 int(maxref), refs.data_ptr(),
-                                depths.data_ptr(), _stream(dev))
+                                depths.data_ptr(), scratch.data_ptr(), words,
+                                _stream(dev))
     _build.check_launch("wgt_enc_select", rc)
     enc_select.launches += 1
+    enc_select.last_counts = scratch[:3]
     return refs, depths
 
 
 enc_select.launches = 0
+enc_select.last_counts = None
 
 
 def enc_emit(off, succ, refs, depths, starts, skey, stats, *, words=None,
