@@ -149,6 +149,11 @@ class Run:
     latencies_s: list        # host clock, each call to its result
     least_s: float | None    # the least time of one call on one H100
     trace: object = None     # trace.Trace of a traced run
+    # the port's host spans (``webgraph_tpu_torch.timing.Span``) that a
+    # traced run recorded in its window and in ``op.setup``; None untraced
+    spans: list | None = None
+    setup_spans: list | None = None
+    counters: dict | None = None  # op.counters()' change a call
 
 
 def _sync(device: str) -> None:
@@ -242,20 +247,27 @@ def control_checks(cell: Cell, seed: int, device: str) -> dict:
         return cell.op.check(ctx, state, kept)
 
 
-def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
-             t0: float) -> dict:
-    """One run of ``cell``: the result object (``correct``, ``attempted``,
-    ``failed``, ``metrics``, ``device``, and with ``trace`` ``breakdown``;
-    then ``checks``) and, under ``info``, the counters and set-up steps for
-    an earlier line."""
+def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
+            t0: float):
+    """One run of ``cell``: ``(Run, result)``, the :class:`Run` that the
+    metric readers got and the result :func:`run_cell` gives.  With
+    ``trace`` the port's host spans are recorded in ``op.setup`` and in
+    the traced window, and the window's idle gaps inside the calls are
+    named by the innermost span open over them; untraced, nothing is
+    recorded and the port's spans stay off."""
     import torch
 
+    from webgraph_tpu_torch import timing
+
     op = cell.op
+    label = f"{cell.mix['op']} call"
+    record = timing.recording if trace else contextlib.nullcontext
     with tempfile.TemporaryDirectory(prefix="wgt-bench-") as tmp:
         ctx = Context(cell, seed, device, tmp, None, None)
         with ctx.mark("make"):
             ctx.offsets, ctx.succ = generator.make_graph(cell.config, seed)
-        state = op.setup(ctx)
+        with record() as setup_spans:
+            state = op.setup(ctx)
         with ctx.mark("warmup"):
             op.warmup(ctx, state)
             _sync(device)
@@ -266,21 +278,31 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         gc.freeze()  # set-up's objects stay out of the window's collections
         setup_s = time.perf_counter() - t0
         keep = sample(ctx)
-        tr = None
+        tr = spans = None
         if trace:
             from torch.profiler import ProfilerActivity, profile
 
             from benchmark import trace as T
 
             # device activity alone: the calls' host side is the
-            # harness's clock, so tracing adds nothing to it
+            # harness's clock and the port's spans
             acts = ([ProfilerActivity.CUDA] if device.startswith("cuda")
                     else [ProfilerActivity.CPU])
             stamps = []
-            with profile(activities=acts) as prof:
-                fields, kept = window(ctx, state, min(seconds, TRACE_SECONDS),
-                                      keep, stamps)
-            tr = T.read(prof, stamps, f"{cell.mix['op']} call")
+            # the spans' records are what the window keeps allocating: left
+            # on, the collector runs inside the calls, which it does not
+            # in an untraced window, and adds to every host time read here
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with profile(activities=acts) as prof, record() as spans:
+                    fields, kept = window(ctx, state,
+                                          min(seconds, TRACE_SECONDS), keep,
+                                          stamps)
+            finally:
+                if collecting:
+                    gc.enable()
+            tr = T.read(prof, stamps, label)
         else:
             fields, kept = window(ctx, state, seconds, keep)
         gc.unfreeze()
@@ -291,22 +313,29 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         least = op.least_s(ctx, state)
     checks["failed_calls"] = (fields["failed"], 0)
     correct = bool(kept) and all(v <= lim for v, lim in checks.values())
-    run = Run(cell.mix["op"], setup_s, least_s=least, trace=tr, **fields)
+    calls = max(fields["ops"] + fields["failed"], 1)
+    counters = {k: (after[k] - before.get(k, 0)) / calls for k in after}
+    run = Run(cell.mix["op"], setup_s, least_s=least, trace=tr, spans=spans,
+              setup_spans=setup_spans, counters=counters, **fields)
     metrics = {}
     for m in metric_entries(cell, trace):
         v = read_metric(cell, m["name"], run)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    calls = max(fields["ops"] + fields["failed"], 1)
-    counters = {k: (after[k] - before.get(k, 0)) / calls for k in after}
     result = {"correct": correct,
               "attempted": fields["ops"] + fields["failed"],
               "failed": fields["failed"], "metrics": metrics,
               "device": {"memory_peak_bytes": peak}}
+    named = None
     if tr is not None:
+        gaps = tr.idle_gaps
+        if tr.busy_s is not None:
+            from benchmark import spans as S
+
+            gaps, named = S.named_gaps(tr, stamps, spans, label)
         result["device"].update(busy_s=tr.busy_s, window_s=tr.window_s)
         result["breakdown"] = {"device_ops": tr.device_ops,
-                               "idle_gaps": tr.idle_gaps}
+                               "idle_gaps": gaps}
     result["checks"] = {k: {"value": v, "limit": lim}
                         for k, (v, lim) in checks.items()}
     result["info"] = {"setup_steps_s": ctx.marks,
@@ -316,5 +345,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
                       "least_s_per_call": least,
                       "kernels_traced": tr.kernels if tr else None,
                       "device_busy_in_calls": (tr.span_busy_s / tr.busy_s
-                                               if tr and tr.busy_s else None)}
-    return result
+                                               if tr and tr.busy_s else None),
+                      "idle_in_calls_named_by_spans": named}
+    return run, result
+
+
+def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
+             t0: float) -> dict:
+    """One run of ``cell``: the result object (``correct``, ``attempted``,
+    ``failed``, ``metrics``, ``device``, and with ``trace`` ``breakdown``;
+    then ``checks``) and, under ``info``, the counters and set-up steps for
+    an earlier line (:func:`measure`)."""
+    return measure(cell, seed, seconds, trace, device, t0)[1]

@@ -9,8 +9,9 @@ makes the graph from the seed, stores it with the benchmark's frozen
 encoder under ``TMPDIR``, loads it with the port and warms up the cell's
 path; then the window calls the operation back to back for ``--seconds``
 (``--trace 1``: at most ``harness.TRACE_SECONDS``, under
-``torch.profiler``), and the check compares what the calls produced with
-the plain reference.  The last line of standard output is one JSON object
+``torch.profiler``, with the port's host spans recorded in set-up and in
+the window), and the check compares what the calls produced with the
+plain reference.  The last line of standard output is one JSON object
 (``correct``, ``attempted``, ``failed``, ``metrics``, ``device``, with
 ``--trace 1`` ``breakdown``, and last ``checks``); the line before it
 holds the program's counters and the set-up's steps.  The numbers

@@ -1,52 +1,47 @@
 """The port's host spans (``webgraph_tpu_torch.timing``) read against a
-traced window of one cell.
+traced window: what the harness and the span readers of
+``benchmark/metrics/`` share, and a command line for what only it prints.
 
     python3 benchmark/spans.py --workload <cell> --seed <n> [--seconds 3]
 
-From the root of a checkout, on the card.  Set-up runs as ``run.py``'s
-does, under ``timing.recording()``; after the warm-up, calls run back to
-back for ``--seconds`` under ``torch.profiler`` (device activity only, as
-``run.py --trace 1``) and a second ``recording()``.  Prints one JSON line:
+From the root of a checkout, on the card.  One traced run of the cell
+through the harness (``harness.measure``, as ``run.py --trace 1``: the
+spans recorded in ``op.setup`` and in the window of at most ``--seconds``
+under ``torch.profiler``), then one JSON line:
 
-* ``quantities``: what the per-layer readers of :data:`QUANTITIES` give,
-  those of the cell's operation kind;
+* ``correct``, ``metrics`` (the cell's per-layer metrics), ``idle_gaps``
+  (the result's breakdown: the device's idle time inside the calls by the
+  innermost span open over it, :func:`idle_by_span`),
+  ``idle_in_spans_share`` (the share of it that a span names) and
+  ``idle_gaps_by_position`` as ``trace.read`` labels it;
 * ``self_us_per_call``, ``counts_per_call``: each span name's self time
   (its duration less its children's) and each count, summed over the
   window and divided by its calls; ``setup_ms``: each set-up span's time;
-* ``idle_gaps``: the device's idle time inside the calls by the innermost
-  span open over it (:func:`idle_by_span`), ``idle_in_spans_share`` the
-  share of it that a span names, and ``idle_gaps_by_position`` as
-  ``trace.read`` labels it;
 * ``follows``: for ``k1_parse`` and ``enc_costs``, the share of calls in
   which the kernel's device start follows the start of the span that
   launches it (:func:`follows`), the check that spans and device events
   share one clock; ``clock_offset_us`` bounds the two clocks' offset
-  from both sides (:func:`clock_offset`), ``realtime_ppm`` their drift;
-* ``host_ms_per_call``: a call's wall time less the device's busy time,
-  as ``query_host_ms`` reads it, here with the spans on;
+  from both sides (:func:`clock_offset`), ``realtime_ppm`` their drift
+  over the run;
 * ``span_cost_ns``: one span's host cost off and on (:func:`span_cost_ns`).
 
 Each call is one top-level span of the port (``decode``, ``query``,
-``encode``).  No line of ``run.py`` reads these numbers: it records no
-span.  torch and the port are imported when a function runs.
+``encode``).  torch and the port are imported when a function runs.
 """
 
 import argparse
 import bisect
-import gc
 import json
 import os
 import statistics
 import sys
-import tempfile
 import time
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-from benchmark import harness, trace  # noqa: E402
-from benchmark.reference import generator  # noqa: E402
+from benchmark import trace  # noqa: E402
 
 # (span, kernel it launches): the clock checks
 FOLLOWS = (("decode.k1_parse", "k1_parse"), ("encode.costs", "enc_costs"))
@@ -89,8 +84,9 @@ def per_call(spans):
     return us, counts
 
 
-def _us(spans, name, less=()):
-    """The spans ``name`` less the spans ``less``, µs a call."""
+def us_per_call(spans, name, less=()):
+    """The spans ``name`` less the spans ``less``, µs a call; None where
+    no call was recorded."""
     n = calls(spans)
     if not n:
         return None
@@ -98,47 +94,12 @@ def _us(spans, name, less=()):
     return ns / 1e3 / n
 
 
-def _records(spans):
+def count_per_call(spans, name, key):
+    """The count ``key`` summed over the spans ``name``, a call; None
+    where no such span carries it."""
+    got = [s.counts[key] for s in spans if s.name == name and key in s.counts]
     n = calls(spans)
-    if not n:
-        return None
-    return sum(s.counts.get("records", 0) for s in spans
-               if s.name == "query.plan") / n
-
-
-def _scan_ms(setup):
-    if not any(s.name == "prepare.scan" for s in setup):
-        return None
-    return total_ns(setup, "prepare.scan") / 1e6
-
-
-# name -> (the operation kinds whose cells it reads, its reader of the
-# window's spans and the set-up's)
-QUANTITIES = {
-    # the decode's host time: the call less its wait for the card
-    "decode_host_us": (("decode",), lambda w, s: _us(
-        w, "decode", ("decode.wait",))),
-    "query_plan_us": (("query",), lambda w, s: _us(w, "query.plan")),
-    "query_gather_us": (("query",), lambda w, s: _us(w, "query.gather")),
-    # the closure's size, a batch
-    "query_closure_records": (("query",), lambda w, s: _records(w)),
-    # the encode less its two reads from the card
-    "encode_host_us": (("encode",), lambda w, s: _us(
-        w, "encode", ("encode.read_totals", "encode.read_streams"))),
-    # the structure scan in set-up, ms
-    "scan_ms": (("decode", "query"), lambda w, s: _scan_ms(s)),
-}
-
-
-def quantities(op: str, spans, setup) -> dict:
-    """The readers of :data:`QUANTITIES` that apply to ``op`` and find
-    something to read: name -> value."""
-    out = {}
-    for name, (ops, read) in QUANTITIES.items():
-        v = read(spans, setup) if op in ops else None
-        if v is not None:
-            out[name] = v
-    return out
+    return sum(got) / n if got and n else None
 
 
 def segments(spans) -> list:
@@ -225,6 +186,17 @@ def in_spans_share(idle: dict, label: str) -> float | None:
     return named / total if total > 0 else None
 
 
+def named_gaps(tr, stamps, spans, label: str):
+    """``(gaps, share)`` of a traced window (``trace.Trace`` ``tr``, its
+    calls ``stamps`` in ns): the :data:`trace.TOP` longest idle gaps of
+    :func:`idle_by_span`, ``[label, seconds]``, and
+    :func:`in_spans_share`."""
+    busy = trace.union((a, b) for _, a, b in tr.events)
+    idle = idle_by_span(busy, stamps, spans, label)
+    top = sorted(([k, v] for k, v in idle.items()), key=lambda kv: -kv[1])
+    return top[:trace.TOP], in_spans_share(idle, label)
+
+
 def _paired(spans, names, device, op):
     """The spans of ``names`` and the device ops ``op`` (a name up to its
     template arguments), ``((start, end), (start, end))`` pairs in order
@@ -270,72 +242,28 @@ def clock_offset(device, spans) -> dict:
             "high": min(high) / 1e3 if high else None}
 
 
-def device_ops(prof) -> list:
-    """``(short name, start ns, end ns)`` of the trace's kernels, copies
-    and memsets, as ``trace.read`` takes them."""
-    import torch
-
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(trace.short(e.name()), e.start_ns(), e.end_ns())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda and not e.is_user_annotation()]
-
-
-def run_spans(cell, seed: int, seconds: float, device: str) -> dict:
-    """Set-up and a traced window of ``cell`` with the spans recorded: the
-    result the module's docstring lists, but ``span_cost_ns``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from webgraph_tpu_torch import timing
-
-    op, kind = cell.op, cell.mix["op"]
-    label = f"{kind} call"
-    with tempfile.TemporaryDirectory(prefix="wgt-spans-") as tmp:
-        ctx = harness.Context(cell, seed, device, tmp, None, None)
-        ctx.offsets, ctx.succ = generator.make_graph(cell.config, seed)
-        with timing.recording() as setup:
-            state = op.setup(ctx)
-        op.warmup(ctx, state)
-        cuda = device.startswith("cuda")
-        if cuda:
-            torch.cuda.synchronize()
-        gc.collect()
-        gc.freeze()
-        stamps = []
-        acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
-        raw = time.CLOCK_MONOTONIC_RAW
-        clocks = [(time.time_ns(), time.clock_gettime_ns(raw))]
-        with timing.recording() as spans, profile(activities=acts) as prof:
-            fields, _ = harness.window(ctx, state, seconds, set(), stamps)
-        clocks.append((time.time_ns(), time.clock_gettime_ns(raw)))
-        gc.unfreeze()
-        tr = trace.read(prof, stamps, label)
-        dev = device_ops(prof)
-    us, counts = per_call(spans)
-    out = {"calls": len(stamps), "failed": fields["failed"],
-           "quantities": quantities(kind, spans, setup),
+def report(run, result) -> dict:
+    """What the command line prints of a traced run (``harness.measure``):
+    the module's docstring lists it, but ``realtime_ppm`` and
+    ``span_cost_ns``."""
+    tr, sp = run.trace, run.spans
+    us, counts = per_call(sp)
+    setup = {}
+    for s in run.setup_spans:
+        setup[s.name] = setup.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e6
+    out = {"correct": result["correct"], "calls": len(tr.spans),
+           "failed": run.failed,
+           "metrics": {k: m["value"] for k, m in result["metrics"].items()},
            "self_us_per_call": us, "counts_per_call": counts,
-           "setup_ms": {s.name: (s.end_ns - s.start_ns) / 1e6
-                        for s in setup},
-           "window_s": tr.window_s, "busy_s": tr.busy_s,
-           # how far time.time_ns() ran from the raw monotonic clock
-           # over the window, parts a million
-           "realtime_ppm": 1e6 * ((clocks[1][0] - clocks[0][0])
-                                  / (clocks[1][1] - clocks[0][1]) - 1)}
+           "setup_ms": setup, "window_s": tr.window_s, "busy_s": tr.busy_s}
     if tr.busy_s is not None:
-        busy = [[a, b] for a, b in trace.union((a, b) for _, a, b in dev)]
-        idle = idle_by_span(busy, stamps, spans, label)
-        wall = sum(b - a for a, b in tr.spans)
         out.update(
-            host_ms_per_call=1e3 * (wall - tr.busy_s) / len(tr.spans),
-            idle_gaps=sorted(([k, v] for k, v in idle.items()),
-                             key=lambda kv: -kv[1]),
-            idle_in_spans_share=in_spans_share(idle, label),
+            idle_gaps=result["breakdown"]["idle_gaps"],
+            idle_in_spans_share=result["info"]["idle_in_calls_named_by_spans"],
             idle_gaps_by_position=tr.idle_gaps,
-            follows={k: follows(dev, spans, s, k) for s, k in FOLLOWS
-                     if any(x.name == s for x in spans)},
-            clock_offset_us=clock_offset(dev, spans))
+            follows={k: follows(tr.events, sp, s, k) for s, k in FOLLOWS
+                     if any(x.name == s for x in sp)},
+            clock_offset_us=clock_offset(tr.events, sp))
     return out
 
 
@@ -370,6 +298,8 @@ def span_cost_ns(reps: int = 100_000, rounds: int = 5) -> dict:
 
 
 def main(argv=None) -> int:
+    from benchmark import harness
+
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)
@@ -384,7 +314,16 @@ def main(argv=None) -> int:
         print("spans.py: needs a CUDA device", file=sys.stderr)
         return 2
     cell = harness.find_cell(a.workload)
-    out = run_spans(cell, a.seed, a.seconds, "cuda")
+    raw = time.CLOCK_MONOTONIC_RAW
+    clocks = [(time.time_ns(), time.clock_gettime_ns(raw))]
+    run, result = harness.measure(cell, a.seed, a.seconds, True, "cuda",
+                                  time.perf_counter())
+    clocks.append((time.time_ns(), time.clock_gettime_ns(raw)))
+    out = report(run, result)
+    # how far time.time_ns() ran from the raw monotonic clock over the
+    # run, parts a million
+    out["realtime_ppm"] = 1e6 * ((clocks[1][0] - clocks[0][0])
+                                 / (clocks[1][1] - clocks[0][1]) - 1)
     out["span_cost_ns"] = span_cost_ns()
     print(json.dumps({"cell": a.workload, "seed": a.seed,
                       "card": power_limit(), **out}), flush=True)

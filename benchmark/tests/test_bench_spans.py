@@ -1,12 +1,24 @@
-"""The port's host spans read against a traced window (benchmark/spans.py):
-gap labels, clock check and readers on hand-made spans and traces, and a
-window on the CPU at the tiny size (CPU)."""
+"""The port's host spans read against a traced window (benchmark/spans.py)
+and the span readers of benchmark/metrics/: gap labels, clock check and
+readers on hand-made spans and traces, and the harness's runs on the CPU
+at the tiny size, traced and untraced (CPU)."""
+
+import gc
+import os
+import types
 
 import pytest
 
+from benchmark import harness, trace
 from benchmark import spans as S
-from benchmark import trace
+from webgraph_tpu_torch import timing
 from webgraph_tpu_torch.timing import Span
+
+SPEC = harness.load_json(os.path.join(harness.ROOT, "BENCHMARK.json"))
+CELLS = [w["name"] for w in SPEC["workloads"]]
+# the per-layer metrics that read the port's spans and counts
+SPAN_METRICS = [m["name"] for m in SPEC["per_layer"]
+                if m["source"] in ("program_span", "program_counter")]
 
 US = 1000  # ns
 
@@ -65,6 +77,13 @@ def test_gaps_by_span():
     named = sum(v for k, v in idle.items() if k.startswith("q: host in"))
     inside = sum(v for k, v in idle.items() if k.startswith("q:"))
     assert S.in_spans_share(idle, "q") == pytest.approx(named / inside)
+    # the harness's breakdown: the longest gaps first, and the share
+    tr = types.SimpleNamespace(events=[("k", a, b) for a, b in BUSY])
+    gaps, share = S.named_gaps(tr, CALLS, QUERY, "q")
+    assert gaps[0] == ["q: host in query.gather", pytest.approx(50e-6)]
+    assert dict(gaps) == pytest.approx(idle, abs=1e-12)
+    assert [v for _, v in gaps] == sorted(idle.values(), reverse=True)
+    assert share == pytest.approx(named / inside)
 
 
 def test_gaps_without_spans_are_labelled_as_the_trace_labels_them():
@@ -76,8 +95,23 @@ def test_gaps_without_spans_are_labelled_as_the_trace_labels_them():
     assert S.in_spans_share(idle, "q") == 0.0
 
 
+def _read(op, spans, setup):
+    """The span readers of ``benchmark/metrics/`` on a run of ``op`` with
+    ``spans`` and ``setup``: name -> value, those that find something."""
+    run = types.SimpleNamespace(op=op, spans=spans, setup_spans=setup)
+    out = {}
+    for name in SPAN_METRICS:
+        mod = harness.load_module(
+            os.path.join(harness.ROOT, "benchmark", "metrics", name + ".py"),
+            "benchmark_metric_" + name)
+        v = mod.read(run)
+        if v is not None:
+            out[name] = v
+    return out
+
+
 def test_readers_on_hand_made_spans():
-    got = S.quantities("query", QUERY, [])
+    got = _read("query", QUERY, [])
     assert got == pytest.approx({"query_plan_us": (17 + 14) / 2,
                                  "query_gather_us": (35 + 25) / 2,
                                  "query_closure_records": 20.0})
@@ -85,18 +119,22 @@ def test_readers_on_hand_made_spans():
                     ("decode", None, 20, 24), ("decode.wait", 2, 22, 24))
     setup = _spans(("prepare", None, 0, 5000),
                    ("prepare.scan", 0, 0, 3000))
-    assert S.quantities("decode", decode, setup) == pytest.approx(
+    assert _read("decode", decode, setup) == pytest.approx(
         {"decode_host_us": (7 + 2) / 2, "scan_ms": 3.0})
     encode = _spans(("encode", None, 0, 100),
-                    ("encode.read_totals", 0, 10, 15, {"d2h_bytes": 24}),
+                    ("encode.read_totals", 0, 10, 15,
+                     {"d2h_bytes": 48, "select_rerun_nodes": 7}),
                     ("encode.read_streams", 0, 60, 90, {"d2h_bytes": 800}))
-    assert S.quantities("encode", encode, setup) == {"encode_host_us": 65.0}
-    # a program without spans: nothing to read
-    assert S.quantities("decode", [], []) == {}
+    assert _read("encode", encode, setup) == {"encode_host_us": 65.0,
+                                              "select_rerun_nodes": 7.0}
+    # a program without spans, or a run that recorded none: nothing to read
+    assert _read("decode", [], []) == {}
+    assert _read("query", None, None) == {}
     us, counts = S.per_call(encode)
     assert us == pytest.approx({"encode": 65.0, "encode.read_totals": 5.0,
                                 "encode.read_streams": 30.0})
-    assert counts == {"encode.read_totals.d2h_bytes": 24.0,
+    assert counts == {"encode.read_totals.d2h_bytes": 48.0,
+                      "encode.read_totals.select_rerun_nodes": 7.0,
                       "encode.read_streams.d2h_bytes": 800.0}
 
 
@@ -120,16 +158,78 @@ def test_follows_pairs_launches_with_their_spans():
     ("cnr2000-maxref3.decode", {"decode_host_us", "scan_ms"}),
     ("cnr2000-maxref3.query", {"query_plan_us", "query_gather_us",
                                "query_closure_records", "scan_ms"}),
-    ("cnr2000-maxref3.encode", {"encode_host_us"}),
+    ("cnr2000-maxref3.encode", {"encode_host_us", "select_rerun_nodes"}),
 ])
 def test_a_cpu_window_reads_its_cells_quantities(name, want, tiny_cell):
-    r = S.run_spans(tiny_cell(name), 3_000_000_017, 0.05, "cpu")
-    assert r["failed"] == 0 and r["calls"] >= 1
-    assert set(r["quantities"]) == want
-    assert all(v > 0 for v in r["quantities"].values())
+    """A traced run of each tiny cell reports exactly its span metrics (a
+    CPU trace holds no device activity, so no device metric reads), a
+    value for each, and what the command line prints of it."""
+    run, r = harness.measure(tiny_cell(name), 3_000_000_017, 0.05, True,
+                             "cpu", 0.0)
+    assert r["correct"] and run.failed == 0 and len(run.trace.spans) >= 1
+    assert set(r["metrics"]) == want
+    assert want == {m["name"] for m in SPEC["per_layer"]
+                    if m["name"] in SPAN_METRICS
+                    and name in m.get("workloads", CELLS)}
+    for k, m in r["metrics"].items():
+        counter = k in ("query_closure_records", "select_rerun_nodes")
+        assert m["value"] >= 0 if counter else m["value"] > 0, k
+    out = S.report(run, r)
     root = name.rsplit(".", 1)[1]
-    assert r["self_us_per_call"][root] > 0
-    assert "idle_gaps" not in r  # no device traced on the CPU
+    assert out["self_us_per_call"][root] > 0
+    assert out["metrics"] == {k: m["value"] for k, m in r["metrics"].items()}
+    assert "idle_gaps" not in out  # no device traced on the CPU
+    assert r["breakdown"]["idle_gaps"] == run.trace.idle_gaps == []
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_an_untraced_run_records_no_span(name, tiny_cell, monkeypatch):
+    """Untraced, the recorder stays off through set-up and the window:
+    ``timing.span`` is the shared do-nothing object in every call, and the
+    run holds no spans."""
+    cell = tiny_cell(name)
+    step, seen = cell.op.step, []
+
+    def watched(ctx, state, i):
+        seen.append(timing.span("x") is timing._OFF
+                    and timing._REC.events is None)
+        return step(ctx, state, i)
+
+    monkeypatch.setattr(cell.op, "step", watched)
+    run, r = harness.measure(cell, 3_000_000_019, 0.05, False, "cpu", 0.0)
+    assert r["correct"] and seen and all(seen)
+    assert run.spans is None and run.setup_spans is None
+    assert "breakdown" not in r
+    assert timing._REC.events is None
+
+
+@pytest.mark.parametrize("trace_on", [False, True])
+def test_only_a_traced_window_pauses_the_collector(trace_on, tiny_cell,
+                                                   monkeypatch):
+    """Traced, the collector is off through the window's calls, so that
+    the spans' records set off no collection there, and on again after;
+    untraced, the window runs as it always has."""
+    window, seen = harness.window, []
+
+    def watched(*args, **kw):
+        seen.append(gc.isenabled())
+        return window(*args, **kw)
+
+    monkeypatch.setattr(harness, "window", watched)
+    assert gc.isenabled()
+    run, r = harness.measure(tiny_cell(CELLS[0]), 3_000_000_029, 0.05,
+                             trace_on, "cpu", 0.0)
+    assert r["correct"] and seen == [not trace_on]
+    assert gc.isenabled()
+
+
+@pytest.mark.parametrize("trace_on", [False, True])
+@pytest.mark.parametrize("name", CELLS)
+def test_run_counters_are_the_info_lines(name, trace_on, tiny_cell):
+    run, r = harness.measure(tiny_cell(name), 3_000_000_023, 0.05, trace_on,
+                             "cpu", 0.0)
+    assert run.counters == r["info"]["counters_per_call"]
+    assert set(run.counters) == set(tiny_cell(name).op.counters())
 
 
 def test_span_cost_is_measured():

@@ -120,9 +120,10 @@ def test_file_names_under_paths_are_made_of_name_characters():
 
 
 def test_a_dropped_in_config_mix_and_metric_are_found_by_name(tmp_path):
-    """A new configuration, traffic mix and per-layer metric are new files
+    """A new configuration, traffic mix and per-layer metrics are new files
     and entries only: the harness finds them by name and a run reports
-    the new metric, no other file edited."""
+    the new metrics, one of the trace and one of the port's spans, no
+    other file edited."""
     shutil.copytree(os.path.join(ROOT, "benchmark"), tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     spec = json.loads(json.dumps(SPEC))
@@ -136,6 +137,11 @@ def test_a_dropped_in_config_mix_and_metric_are_found_by_name(tmp_path):
          "check": {"sample": 1, "among": 2}}))
     (tmp_path / "benchmark/metrics/calls_traced.py").write_text(
         "def read(run):\n    return float(len(run.trace.spans))\n")
+    (tmp_path / "benchmark/metrics/calls_spanned.py").write_text(
+        "def read(run):\n"
+        "    if not run.spans:\n"
+        "        return None\n"
+        "    return float(sum(s.parent is None for s in run.spans))\n")
     spec["configs"].append({"name": "tiny-web", "source": "https://x.org",
                             "file": "benchmark/configs/tiny-web.json",
                             "reduced": ["nodes"], "why": "a test"})
@@ -146,14 +152,21 @@ def test_a_dropped_in_config_mix_and_metric_are_found_by_name(tmp_path):
                               "better": "higher", "source": "program_span",
                               "layer": "harness", "moves": "setup_s",
                               "workloads": ["tiny-web.decode-few"]})
+    spec["per_layer"].append({"name": "calls_spanned", "unit": "calls",
+                              "better": "higher", "source": "program_span",
+                              "layer": "decode wrapper", "moves": "setup_s",
+                              "workloads": ["tiny-web.decode-few"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
     cell = harness.find_cell("tiny-web.decode-few", root=str(tmp_path))
     assert cell.config["graph"]["nodes"] == 4000
     assert cell.mix["check"]["among"] == 2
     r = harness.run_cell(cell, 5, 0.05, True, "cpu", 0.0)
     assert r["correct"] and r["metrics"]["calls_traced"]["value"] >= 1
+    # every traced call is one top-level span of the port's
+    assert r["metrics"]["calls_spanned"]["value"] == \
+        r["metrics"]["calls_traced"]["value"]
     # a CPU trace holds no device activity: no device metric is read
-    assert set(r["metrics"]) == {"calls_traced"}
+    assert set(r["metrics"]) == {"calls_traced", "calls_spanned"}
 
 
 def test_an_unknown_cell_is_refused():

@@ -4,8 +4,9 @@ idle gaps by where the host was in the calls.
 
 The host side comes from the harness's own clock: the start and end of
 each call as ``time.time_ns()`` read them, on the clock that the
-profiler's events are given on (Unix time in nanoseconds).  No host
-operation is traced, so the trace adds no time to a call's host work.
+profiler's events are given on (Unix time in nanoseconds).  The profiler
+traces no host operation; the harness names the host's part of a gap by
+the port's own spans (``benchmark/spans.py``).
 
 The benchmark's own copy of the ideas of the port's
 ``webgraph_tpu_torch/timing.py`` (device activity summed from the
@@ -32,6 +33,8 @@ class Trace:
     device_ops: list = field(default_factory=list)  # [name, seconds]
     idle_gaps: list = field(default_factory=list)   # [host label, seconds]
     kernels: dict = field(default_factory=dict)     # name -> launches
+    # (short name, start, end) of each device op, in ns of time.time_ns()
+    events: list = field(default_factory=list)
 
 
 def short(name: str) -> str:
@@ -111,14 +114,13 @@ def read(prof, spans_ns, label: str) -> Trace:
     base = min(a for a, _ in spans_ns)
     spans = sorted(((a - base) / 1e9, (b - base) / 1e9) for a, b in spans_ns)
     t0, t1 = spans[0][0], spans[-1][1]
-    device = []
-    for e in prof.profiler.kineto_results.events():
-        # kernels, copies and memsets; not the device side of an annotation
-        if e.device_type() == cuda and not e.is_user_annotation():
-            device.append((short(e.name()), (e.start_ns() - base) / 1e9,
-                           (e.end_ns() - base) / 1e9))
-    if not device:
+    # kernels, copies and memsets; not the device side of an annotation
+    events = [(short(e.name()), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and not e.is_user_annotation()]
+    if not events:
         return Trace(t1 - t0, spans, None, None)
+    device = [(n, (a - base) / 1e9, (b - base) / 1e9) for n, a, b in events]
     merged = union((a, b) for _, a, b in device)
     busy = sum(b - a for a, b in merged)
     starts = [a for a, _ in merged]
@@ -132,4 +134,4 @@ def read(prof, spans_ns, label: str) -> Trace:
     gtop = sorted(idle.items(), key=lambda kv: -kv[1])[:TOP]
     return Trace(t1 - t0, spans, busy, span_busy,
                  [[k, v] for k, v in top], [[k, v] for k, v in gtop],
-                 kernels)
+                 kernels, events)
