@@ -409,12 +409,14 @@ def _counts():
     """Launches since the last reset: each kernel by name under the route
     whose wrapper launched it (``k1``: ``decode2.decode_records``, with
     its reads from the card; ``k2``: ``decode.decode_levels``), and
-    ``probes``: the probes and the parses alone (none on a main path)."""
+    ``probes``: the probes and the parses alone (none on a main path);
+    ``k1_levels``: the depth levels ``decode_records`` resolved."""
     from webgraph_tpu_torch.kernels import decode as K2
     from webgraph_tpu_torch.kernels import decode2 as D2
     from webgraph_tpu_torch.kernels import pcodes as P
 
-    return {"k1": dict(D2.decode_records.counts),
+    k1 = dict(D2.decode_records.counts)
+    return {"k1_levels": k1.pop("levels"), "k1": k1,
             "k2": dict(K2.decode_levels.counts),
             "probes": P.probe.launches + K2.compact_probe.launches
             + K2.parse_records.launches + D2.parse_records.launches}

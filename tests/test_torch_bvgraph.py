@@ -166,7 +166,8 @@ def test_kernel_matches_plain_and_oracle_on_card(name, tmp_path, cuda):
     deep = int(len(prep.bounds) > 2)
     assert _counts() == {"k1_parse": before["k1_parse"] + 1,
                          "k2_resolve": before["k2_resolve"] + deep,
-                         "reads": before["reads"] + 1}
+                         "reads": before["reads"] + 1,
+                         "levels": before["levels"] + len(prep.bounds) - 1}
     psucc, perr = D2.resolve_copies_plain(plain, prep.order, prep.bounds,
                                           prep.offsets, prep.bstart)
     assert not perr.any()

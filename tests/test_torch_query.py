@@ -314,7 +314,8 @@ def test_successors_batch_on_card(name, tmp_path, cuda):
     assert after == {"k1_parse": k1["k1_parse"] + 1,
                      "k2_resolve": k1["k2_resolve"] + int(
                          plan.bounds.size > 2),
-                     "reads": k1["reads"] + 1}
+                     "reads": k1["reads"] + 1,
+                     "levels": k1["levels"] + plan.bounds.size - 1}
     assert k2_after == k2 and out.device.type == "cuda"
     _assert_lists(bv, nodes, out, counts)
 

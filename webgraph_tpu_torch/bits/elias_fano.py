@@ -194,10 +194,17 @@ class EliasFanoMonotoneList:
         return int(v[0]) if scalar else v
 
     def get_array(self) -> np.ndarray:
-        """Decode the whole sequence (transient, for bulk consumers)."""
+        """Decode the whole sequence (transient, for bulk consumers): the
+        upper bits' ones in one pass over the bit vector, in place of a
+        select a value."""
         if self.n == 0:
             return np.zeros(0, dtype=np.int64)
-        return self.get(np.arange(self.n, dtype=np.int64))
+        idx = np.arange(self.n, dtype=np.int64)
+        bits = np.unpackbits(
+            self.upper.words.astype("<u8", copy=False).view(np.uint8),
+            bitorder="little")
+        hi = np.flatnonzero(bits)[: self.n] - idx
+        return (hi << self.l) | _unpack_bits(self.lower, self.l, idx)
 
     def num_bits(self) -> int:
         """Bits of the succinct payload (lower + upper arrays)."""

@@ -41,7 +41,7 @@ from webgraph_tpu_torch.kernels.levels import (  # noqa: F401  (K1's names)
     resolve_copies_plain, stream_words)
 from webgraph_tpu_torch.kernels.levels import decode_plain as \
     decode_records_plain
-from webgraph_tpu_torch.kernels.plan import scan_structure
+from webgraph_tpu_torch.kernels.plan import chain_roots, scan_structure
 from webgraph_tpu_torch.timing import span
 
 MAX_REACH = 256  # longest reference reach (nodes) K1 takes
@@ -51,15 +51,10 @@ RANK_NONE = 2**31 - 1  # the rank of a node the plan does not list
 
 
 def _minanc(scan, n):
-    """Smallest ancestor id of each node (itself if it has no reference)."""
-    ref = scan.ref.astype(np.int64)
-    parent = np.where(ref > 0, np.arange(n) - ref, np.arange(n))
-    minanc = np.arange(n)
-    cur = parent.copy()
-    for _ in range(int(scan.depth.max(initial=0)) + 1):
-        minanc = np.minimum(minanc, cur)
-        cur = parent[cur]
-    return minanc
+    """Smallest ancestor id of each node (itself if it has no reference):
+    the root of its reference chain, since a parent lies before its
+    node."""
+    return chain_roots(scan.ref[:n].astype(np.int64))[0]
 
 
 def supports(g, scan=None) -> bool:
@@ -193,19 +188,22 @@ def decode_records(words, bo, order, bounds, offsets, skey, bstart, long, *,
     ``k2_resolve`` (``decode.launch_resolve``), and are checked once
     after the launches.
     Nothing is read back from the card before the launches when the sizes
-    are given.  ``decode_records.counts`` adds up each kernel's launches
-    and, under ``reads``, the reads from the card (one a CUDA call that
-    decodes a record: the error check).
+    are given.  ``decode_records.counts`` adds up each kernel's launches,
+    under ``reads`` the reads from the card (one a CUDA call that decodes
+    a record: the error check) and under ``levels`` the depth levels of
+    the plans the CUDA calls resolved (``bounds.size - 1`` a call).
 
     Host spans (``timing.span``): ``decode``, holding ``decode.check``,
     ``decode.alloc`` (CUDA), ``decode.k1_parse``, ``decode.k2_resolve``
-    and ``decode.wait`` (the error check)."""
+    (counting ``levels``, the plan's depth levels) and ``decode.wait``
+    (the error check)."""
     dev = words.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_records: unsupported device {dev}")
     with span("decode"):
         with span("decode.check"):
             bounds = np.ascontiguousarray(bounds, dtype=np.int64)
+            levels = bounds.size - 1
             m, nblocks = host_sizes(offsets, bstart, m, nblocks)
             if dev.type == "cuda":
                 check_inputs("decode_records", words, bo, order, bounds,
@@ -216,7 +214,8 @@ def decode_records(words, bo, order, bounds, offsets, skey, bstart, long, *,
                 parsed = parse_records_plain(words, bo, order, bounds,
                                              offsets, skey, bstart, m=m,
                                              nblocks=nblocks)
-            with span("decode.k2_resolve"):
+            with span("decode.k2_resolve") as s:
+                s.count(levels=levels)
                 succ, err = resolve_copies_plain(parsed, order, bounds,
                                                  offsets, bstart, m=m)
             with span("decode.wait"):
@@ -232,16 +231,19 @@ def decode_records(words, bo, order, bounds, offsets, skey, bstart, long, *,
             err, node, parses = _parse(words, bo, order, bounds, offsets,
                                        skey, bstart, long, ext, bend, succ)
         decode_records.counts["k1_parse"] += parses
-        with span("decode.k2_resolve"):
+        with span("decode.k2_resolve") as s:
+            s.count(levels=levels)
             decode_records.counts["k2_resolve"] += K2.launch_resolve(
                 offsets, order, bounds, bstart, bend, ext, node, succ, err)
+        decode_records.counts["levels"] += levels
         decode_records.counts["reads"] += 1
         with span("decode.wait"):
             check_errors(err, order)
         return succ
 
 
-decode_records.counts = {"k1_parse": 0, "k2_resolve": 0, "reads": 0}
+decode_records.counts = {"k1_parse": 0, "k2_resolve": 0, "reads": 0,
+                         "levels": 0}
 
 
 def parse_records(words, bo, order, bounds, offsets, skey, bstart, long, *,

@@ -33,6 +33,29 @@ class StructureScan:
     pos_after_ic: np.ndarray  # bit cursor after the interval-count code
 
 
+def chain_roots(ref) -> tuple[np.ndarray, np.ndarray]:
+    """``(root, depth)`` of each node's reference chain: the node with no
+    reference that the chain ends at (the node itself when ``ref[x] <=
+    0``) and the number of references followed to reach it.  A parent
+    lies before its node, so doubling the steps ancestor by ancestor
+    (``anc[anc]``) reaches every root in log2(depth) rounds of a gather
+    over the nodes.  Raises ``ValueError`` where a chain leads before node
+    0."""
+    n = ref.size
+    ids = np.arange(n, dtype=np.int64)
+    has_ref = ref > 0
+    anc = np.where(has_ref, ids - ref, ids)
+    if (anc < 0).any():
+        raise ValueError("cyclic reference chain")
+    depth = has_ref.astype(np.int64)
+    while True:
+        up = anc[anc]
+        if np.array_equal(up, anc):
+            return anc, depth
+        depth += depth[anc]
+        anc = up
+
+
 def scan_structure(g) -> StructureScan:
     """Vectorized host scan of all structure codes (no residual decode)."""
     s = g.settings
@@ -40,9 +63,10 @@ def scan_structure(g) -> StructureScan:
     from webgraph_tpu_torch.bits.bitstream import as_u64_words
 
     words = np.concatenate([as_u64_words(g._words), np.zeros(2, dtype=np.uint64)])
-    if g.bit_offsets is None:
+    bo = g.bit_offsets  # decoded from the succinct index once
+    if bo is None:
         raise ValueError("the structure scan requires the offsets index")
-    pos = g.bit_offsets[:n].astype(np.int64).copy()
+    pos = bo[:n].astype(np.int64).copy()
 
     read_outd = V.make_reader(s.outdegree_coding, s.zeta_k)
     read_ref = V.make_reader(s.reference_coding, s.zeta_k)
@@ -71,9 +95,10 @@ def scan_structure(g) -> StructureScan:
     if len(idx):
         order = idx[np.argsort(-block_count[idx], kind="stable")]
         counts = block_count[order]
+        falling = -counts  # ascending, for the lanes still reading
         lane_pos = pos[order].copy()
         for step in range(int(counts[0]) if len(counts) else 0):
-            k = int(np.searchsorted(-counts, -step, side="left"))
+            k = int(np.searchsorted(falling, -step, side="left"))
             if k == 0:
                 break
             b, p = read_block(words, lane_pos[:k])
@@ -103,9 +128,10 @@ def scan_structure(g) -> StructureScan:
         if len(idx):
             order = idx[np.argsort(-int_count[idx], kind="stable")]
             counts = int_count[order]
+            falling = -counts
             lane_pos = pos[order].copy()
             for step in range(int(counts[0])):
-                k = int(np.searchsorted(-counts, -step, side="left"))
+                k = int(np.searchsorted(falling, -step, side="left"))
                 if k == 0:
                     break
                 _l, p = V.read_gamma(words, lane_pos[:k])
@@ -118,13 +144,7 @@ def scan_structure(g) -> StructureScan:
 
     res_count = extra - interval_arcs
 
-    depth = np.where(has_ref, -1, 0)
-    parent = np.where(has_ref, np.arange(n) - ref, -1)
-    while (depth < 0).any():
-        pm = (depth < 0) & (parent >= 0) & (depth[np.maximum(parent, 0)] >= 0)
-        if not pm.any():
-            raise ValueError("cyclic reference chain")
-        depth[pm] = depth[parent[pm]] + 1
+    depth = chain_roots(ref)[1]
 
     return StructureScan(
         d=d.astype(np.int32),
