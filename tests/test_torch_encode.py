@@ -14,6 +14,8 @@ tests/test_bvgraph_jax_encode.py:
   ``_diff_comp`` bits, the shifts before it are no candidates, and an
   encode with ``shard_start`` decodes back to the graph;
 * a graph without nodes or arcs raises ValueError;
+* streams whose last word holds 1, 2, 3 or 4 bytes: bytes, bit counts
+  and every stats field against the host store's ``_CompressionStats``;
 * config 4's composition: the device transpose, the Gray-code map (host
   keys), then the encode, against the host pipeline.
 
@@ -27,8 +29,9 @@ Card twins (``gpu``) hold each kernel to its plain version and
 sweep, a graph with a hub of 2,500 arcs, config 3's graph at 2,000 nodes
 with maxref 2^31-1 (a long chain) and a 12-node window (the ring in
 shared memory), and ``enc_select`` to its plain version and its counts to
-the model's on the random tables and the two made ones; they skip
-without a card.  The JAX package: tests/test_torch_encode_ref.py."""
+the model's on the random tables and the two made ones, and two
+encodes of one read size to the host store (the page-locked block
+aliases no result); they skip without a card.  The JAX package: tests/test_torch_encode_ref.py."""
 
 import os
 
@@ -291,6 +294,56 @@ def test_plan_sizes_and_node_bits():
     owords = E.emit_offsets(starts[1:] - starts[:-1], s.offset_coding,
                             s.zeta_k)
     assert owords.dtype == torch.int32 and words.dtype == torch.int32
+
+
+def _host_with_stats(g, tmp_path, name, s, monkeypatch, **kw):
+    """:func:`_host` and the host store's ``_CompressionStats``."""
+    kept = []
+    write = BVGraph._write_properties.__func__
+
+    def spy(cls, basename, n, settings, stats, *rest):
+        kept.append(stats)
+        return write(cls, basename, n, settings, stats, *rest)
+
+    monkeypatch.setattr(BVGraph, "_write_properties", classmethod(spy))
+    gb, ob, props = _host(g, tmp_path, name, s, **kw)
+    monkeypatch.undo()
+    (stats,) = kept
+    return gb, ob, props, {k: v for k, v in vars(stats).items()
+                           if k != "last_offset"}
+
+
+def _assert_stats_equal(mine, host):
+    assert mine.keys() == host.keys()
+    for k, v in host.items():
+        np.testing.assert_array_equal(mine[k], v, err_msg=k)
+
+
+# (bytes of the last word that the streams fill, 0 for bits a multiple of
+# 32; nodes, seed of erdos_renyi(nodes, 0.1)): both streams alike
+LAST_WORD = [(1, 40, 17), (2, 40, 22), (3, 40, 28), (0, 83, 18)]
+
+
+@pytest.mark.parametrize("tail,n,seed", LAST_WORD)
+def test_encode_last_word_bytes_and_stats(tmp_path, monkeypatch, tail, n,
+                                          seed):
+    """Streams whose last word holds 1, 2 or 3 bytes, or is whole: the
+    bytes cut from the words swapped to file order, the bit counts and
+    every stats field equal the host store's.  The stats follow the
+    streams in the one read and are left in the host's byte order: a
+    swapped int64 would not equal the host's count."""
+    g = MutableGraph.erdos_renyi(n, 0.1, seed=seed)
+    s = BVGraphSettings()
+    gb, ob, props, host = _host_with_stats(g, tmp_path, "tail", s,
+                                           monkeypatch, use_native=False)
+    gbits, obits = int(props["graphbits"]), int(props["offsetbits"])
+    for bits in (gbits, obits):
+        assert bits % 32 == 0 if tail == 0 else (bits + 7) // 8 % 4 == tail
+    dgb, dgbits, dob, dobits, stats = E.encode_device(*g.to_csr(), s,
+                                                      device="cpu")
+    assert (dgb, dgbits, dob, dobits) == (gb, gbits, ob, obits)
+    assert type(dgb) is bytes and type(dob) is bytes
+    _assert_stats_equal(stats, host)
 
 
 # ----------------------------------------------------------------------
@@ -661,6 +714,36 @@ def test_shard_start_and_store_device_gpu(cuda, tmp_path):
     base = os.path.join(tmp_path, "dev")
     props = E.store_device(g, base, settings=s)
     assert props == BVGraph.store(g, os.path.join(tmp_path, "h"), settings=s)
+
+
+@pytest.mark.gpu
+def test_page_locked_read_is_shared_by_no_result_gpu(cuda, tmp_path,
+                                                     monkeypatch):
+    """Graph A, then graph B whose streams take as many words, so B's read
+    reuses the page-locked block that held A's: A's bytes and stats are
+    unchanged after it and still equal the host store's.  Each read lands
+    whole in page-locked memory."""
+    s = BVGraphSettings()
+    a, b = (MutableGraph.erdos_renyi(200, 0.05, seed=k) for k in (4, 7))
+    agb, aob, _, ahost = _host_with_stats(a, tmp_path, "a", s, monkeypatch,
+                                          use_native=False)
+    with timing.recording() as spans:
+        ga, gbits_a, oa, obits_a, sa = E.encode_device(*_on(cuda, a), s,
+                                                       device=cuda)
+        kept = (bytes(bytearray(ga)), bytes(bytearray(oa)),
+                {k: np.copy(v) for k, v in sa.items()})
+        gb, gbits_b, ob, obits_b, _ = E.encode_device(*_on(cuda, b), s,
+                                                      device=cuda)
+    words = [(x + 31) // 32 + (y + 31) // 32
+             for x, y in ((gbits_a, obits_a), (gbits_b, obits_b))]
+    assert words[0] == words[1] and (ga, oa) != (gb, ob)
+    assert (ga, oa) == kept[:2] == (agb, aob)
+    _assert_stats_equal(sa, kept[2])
+    _assert_stats_equal(sa, ahost)
+    reads = [sp.counts for sp in spans if sp.name == "encode.read_streams"]
+    assert len(reads) == 2
+    for c in reads:
+        assert c["pinned_bytes"] == c["d2h_bytes"] > 0
 
 
 @pytest.mark.gpu

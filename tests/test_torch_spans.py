@@ -185,6 +185,9 @@ def test_encode_counts_the_bytes_it_reads(graph):
     # three int64 totals and enc_select's three counts
     assert reads["encode.read_totals"] == 48
     assert reads["encode.read_streams"] >= len(gb) + len(ob)
+    # the words are on the host already: nothing lands in page-locked memory
+    (streams,) = [s for s in spans if s.name == "encode.read_streams"]
+    assert streams.counts["pinned_bytes"] == 0
 
 
 def test_cpu_decode_counts_no_read_from_the_card(graph):

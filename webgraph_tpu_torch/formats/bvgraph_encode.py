@@ -14,8 +14,9 @@ Counterpart of the JAX package's ``webgraph_tpu/formats/bvgraph_jax_encode.py``
    the bit starts and ``.offsets`` positions by ``torch.cumsum``; the host
    reads the two totals once, to size the streams;
 4. ``enc_emit``: every record and ``.offsets`` code written in one launch,
-   with the stats and both gap histograms; the host copies the streams
-   and stats back once.
+   with the stats and both gap histograms; the streams' words are put in
+   file byte order on the device, and the host copies the streams and
+   stats back once (into page-locked memory on CUDA).
 
 Inputs may be NumPy arrays or torch tensors; a CUDA tensor is used in
 place, so a CSR decoded on the card (``decode_to_csr(..., device="cuda")``,
@@ -150,10 +151,6 @@ def emit_offsets(node_bits, offset_coding: int, zeta_k: int, total_obits=None):
     return owords
 
 
-def _bytes(words, bits):
-    return words.view(np.uint32).astype(">u4").tobytes()[: (bits + 7) // 8]
-
-
 def encode_device(offsets, succ, settings, shard_start: int = 0,
                   device="cuda"):
     """Encode a CSR graph to BVGraph bytes on ``device``.
@@ -166,13 +163,24 @@ def encode_device(offsets, succ, settings, shard_start: int = 0,
     ValueError for a graph without nodes or arcs and RuntimeError if a
     record is not the length its cost planned.
 
+    After ``enc_emit`` the bytes of each 32-bit word of the two streams
+    are reversed on the device (the stats that follow them are not), so
+    the streams leave it in file byte order.  On a CUDA device the second
+    read copies them and the stats into page-locked host memory (a block
+    that PyTorch's caching host allocator hands out again on the next
+    call of that size); each stream then takes one copy into its
+    ``bytes``, and nothing returned shares memory with that block.
+
     Host spans (``timing.span``): ``encode``, holding ``encode.costs``,
     ``encode.select``, ``encode.layout`` (the record lengths, bit starts
-    and ``.offsets`` positions), ``encode.read_totals``, ``encode.emit``,
-    ``encode.read_streams`` (both reads count ``d2h_bytes``;
-    ``encode.read_totals`` also ``select_rounds``, ``select_rerun_nodes``
-    and ``select_serial_nodes``, ``enc_select.last_counts``: zeros on the
-    CPU) and ``encode.unpack`` (the bytes and stats)."""
+    and ``.offsets`` positions), ``encode.read_totals``, ``encode.emit``
+    (the launch and the byte swap), ``encode.read_streams`` (both reads
+    count ``d2h_bytes``; ``encode.read_totals`` also ``select_rounds``,
+    ``select_rerun_nodes`` and ``select_serial_nodes``,
+    ``enc_select.last_counts``: zeros on the CPU; ``encode.read_streams``
+    also ``pinned_bytes``, the bytes of the read that landed in
+    page-locked memory: all of them on CUDA, 0 on the CPU) and
+    ``encode.unpack`` (the bytes and stats)."""
     with span("encode"):
         dev = torch.device(device)
         off = _tensor(offsets, torch.int64, dev)
@@ -210,12 +218,20 @@ def encode_device(offsets, succ, settings, shard_start: int = 0,
             K.enc_emit(off, sc, refs, depths, starts, skey, stats,
                        words=buf[:wg], opos=opos, owords=buf[wg:wg + wo],
                        offset_coding=off_c)
+            # MSB-first words to file byte order, the stats left as they are
+            quads = buf[:wg + wo].view(torch.uint8).view(-1, 4)
+            quads.copy_(quads.flip(1))
         with span("encode.read_streams") as s:
-            s.count(d2h_bytes=buf.nbytes)
-            host = buf.cpu().numpy()
+            host, pinned = buf.view(torch.uint8), 0
+            if dev.type == "cuda":
+                host = torch.empty(host.numel(), dtype=torch.uint8,
+                                   pin_memory=True).copy_(host)
+                pinned = host.nbytes
+            s.count(d2h_bytes=buf.nbytes, pinned_bytes=pinned)
         encode_device.reads += 1
         with span("encode.unpack"):
-            st = host[wg + wo + pad:].view(np.int64)
+            h = host.numpy()
+            st = h[4 * (wg + wo + pad):].view(np.int64)
             _raise_on(int(st[K.ERR]), "encode_device")
             names = ("bits_outdegrees", "bits_references", "bits_blocks",
                      "bits_intervals", "bits_residuals", "copied_arcs",
@@ -226,8 +242,9 @@ def encode_device(offsets, succ, settings, shard_start: int = 0,
                 tot_links=m, node_count=n,
                 successor_gap_stats=st[K.NSTATS:K.NSTATS + K.NBINS].copy(),
                 residual_gap_stats=st[K.NSTATS + K.NBINS:K.STATS].copy())
-            return (_bytes(host[:wg], tb), tb, _bytes(host[wg:wg + wo], tob),
-                    tob, stats_out)
+            return (h[:(tb + 7) // 8].tobytes(), tb,
+                    h[4 * wg:4 * wg + (tob + 7) // 8].tobytes(), tob,
+                    stats_out)
 
 
 encode_device.reads = 0  # host reads: two an encode
